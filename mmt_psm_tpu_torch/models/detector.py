@@ -1,0 +1,247 @@
+"""Mask R-CNN R-50-FPN with IR-Net relation-NMS and CIAM, test-time graph.
+
+Port of ``mmt_psm_tpu/models/detector.py`` (``ModelConfig``,
+``MaskRCNN.forward_test`` and ``detections_from_features``): backbone ->
+RPN -> box head -> relation-NMS -> mask head -> mask relation -> per-label
+mask probabilities, all on padded fixed shapes with no host sync.
+Submodules carry maskrcnn-benchmark's names (``backbone.body``,
+``rpn.head``, ``roi_heads.box``, ``roi_heads.mask``, ``relation_nms``),
+so ``state_dict`` keys match the reference checkpoint's.
+
+``build_model`` is the entry point: the flagship config, seeded random
+weights, eval mode, on the card unless the caller asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from ..config import get_cfg
+from ..ops.pooler import multilevel_roi_align
+from ..structures.detections import Detections
+from .anchors import fpn_anchors
+from .backbone import ResNetFPNBackbone
+from .box_head import BoxHead
+from .mask_head import MaskRCNNC4Predictor, MaskRCNNFPNExtractor, kaiming_init, select_mask_probs
+from .mask_relation import MaskRelationConfig, MaskRelationRefineNet
+from .relation import RelationNMS, RelationNMSConfig, relation_nms_inference
+from .rpn import RPN, select_proposals
+
+FLAGSHIP_CONFIG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "configs", "pap", "mmt_psm_r50_fpn.yaml",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The static hyperparameters of the test-time graph (the inference
+    subset of the JAX ``ModelConfig``)."""
+
+    image_size: int = 1024
+    num_classes: int = 3
+    anchor_sizes: tuple = (32, 64, 128, 256, 512)
+    anchor_strides: tuple = (4, 8, 16, 32, 64)
+    aspect_ratios: tuple = (0.5, 1.0, 2.0)
+    pre_nms_top_n_test: int = 1000
+    post_nms_top_n_test: int = 1000
+    fpn_post_nms_top_n_test: int = 1000
+    rpn_nms_thresh: float = 0.7
+    rpn_min_size: float = 0.0
+    reg_weights: tuple = (10.0, 10.0, 5.0, 5.0)
+    pooler_scales: tuple = (0.25, 0.125, 0.0625, 0.03125)
+    box_pooler_resolution: int = 7
+    box_pooler_sampling: int = 2
+    mlp_dim: int = 1024
+    mask_on: bool = True
+    mask_pooler_resolution: int = 14
+    mask_pooler_sampling: int = 2
+    conv_body: str = "R-50-FPN"
+    backbone_out_channels: int = 256
+    compute_dtype: str = "bfloat16"
+    relation: Any = RelationNMSConfig()
+    with_relation_mask: bool = True
+    relation_mask: Any = MaskRelationConfig()
+
+    @classmethod
+    def from_cfg(cls, cfg) -> "ModelConfig":
+        m = cfg.MODEL
+        unsupported = {
+            "MODEL.RPN_ONLY": m.RPN_ONLY,
+            "MODEL.BACKBONE.CONV_BODY": not m.BACKBONE.CONV_BODY.endswith("-FPN"),
+            "MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR": m.ROI_BOX_HEAD.FEATURE_EXTRACTOR != "FPN2MLPFeatureExtractor",
+            "MODEL.ROI_MASK_HEAD.FEATURE_EXTRACTOR": m.MASK_ON
+            and m.ROI_MASK_HEAD.FEATURE_EXTRACTOR != "MaskRCNNFPNFeatureExtractor",
+            # the box post-processor without relation-NMS is not ported yet
+            "MODEL.RELATION_NMS.USE_RELATION_NMS": not m.RELATION_NMS.USE_RELATION_NMS,
+        }
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            raise NotImplementedError(f"the port does not run these settings yet: {bad}")
+        use_rel_mask = bool(m.RELATION_MASK.USE_RELATION)
+        return cls(
+            image_size=cfg.TPU.IMAGE_SIZE,
+            num_classes=m.ROI_BOX_HEAD.NUM_CLASSES,
+            anchor_sizes=tuple(m.RPN.ANCHOR_SIZES),
+            anchor_strides=tuple(m.RPN.ANCHOR_STRIDE),
+            aspect_ratios=tuple(m.RPN.ASPECT_RATIOS),
+            pre_nms_top_n_test=m.RPN.PRE_NMS_TOP_N_TEST,
+            post_nms_top_n_test=m.RPN.POST_NMS_TOP_N_TEST,
+            fpn_post_nms_top_n_test=m.RPN.FPN_POST_NMS_TOP_N_TEST,
+            rpn_nms_thresh=m.RPN.NMS_THRESH,
+            rpn_min_size=float(m.RPN.MIN_SIZE),
+            reg_weights=tuple(m.ROI_HEADS.BBOX_REG_WEIGHTS),
+            pooler_scales=tuple(m.ROI_BOX_HEAD.POOLER_SCALES),
+            box_pooler_resolution=m.ROI_BOX_HEAD.POOLER_RESOLUTION,
+            # the reference's sampling ratio 0 (adaptive) is data-dependent; the pap configs use 2
+            box_pooler_sampling=m.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO or 2,
+            mlp_dim=m.ROI_BOX_HEAD.MLP_HEAD_DIM,
+            mask_on=bool(m.MASK_ON),
+            mask_pooler_resolution=m.ROI_MASK_HEAD.POOLER_RESOLUTION,
+            mask_pooler_sampling=m.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO or 2,
+            conv_body=m.BACKBONE.CONV_BODY,
+            backbone_out_channels=m.BACKBONE.OUT_CHANNELS,
+            compute_dtype=cfg.TPU.COMPUTE_DTYPE,
+            relation=RelationNMSConfig.from_cfg(cfg),
+            with_relation_mask=use_rel_mask,
+            relation_mask=MaskRelationConfig.from_cfg(cfg) if use_rel_mask else None,
+        )
+
+
+class MaskRCNN(nn.Module):
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        c = self.config = config
+        ch = c.backbone_out_channels
+        self.backbone = ResNetFPNBackbone(c.conv_body, ch)
+        self.rpn = RPN(ch, len(c.aspect_ratios))
+        self.roi_heads = nn.Module()
+        self.roi_heads.box = BoxHead(ch, c.box_pooler_resolution, c.mlp_dim, c.num_classes)
+        if c.mask_on:
+            mask = nn.Module()
+            mask.feature_extractor = MaskRCNNFPNExtractor(ch)
+            mask.predictor = MaskRCNNC4Predictor(256, c.num_classes)
+            if c.with_relation_mask:
+                mask.mask_relation_module = MaskRelationRefineNet(c.relation_mask, 256)
+            self.roi_heads.mask = mask
+        self.relation_nms = RelationNMS(c.relation)
+        for i, a in enumerate(fpn_anchors(c.image_size, c.anchor_strides, c.anchor_sizes, c.aspect_ratios)):
+            self.register_buffer(f"anchors_{i}", torch.from_numpy(a), persistent=False)
+        self.eval()
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.config.compute_dtype == "bfloat16" else torch.float32
+
+    def init_weights(self, gen: torch.Generator) -> "MaskRCNN":
+        """Seeded random weights of the JAX initialisers' scales."""
+        self.backbone.init_weights(gen)
+        self.rpn.head.init_weights(gen)
+        self.roi_heads.box.feature_extractor.init_weights(gen)
+        self.roi_heads.box.predictor.init_weights(gen)
+        if self.config.mask_on:
+            mask = self.roi_heads.mask
+            kaiming_init(mask.feature_extractor, gen)
+            kaiming_init(mask.predictor, gen)
+            if self.config.with_relation_mask:
+                mask.mask_relation_module.init_weights(gen)
+        self.relation_nms.init_weights(gen)
+        return self
+
+    @property
+    def anchors(self):
+        return [getattr(self, f"anchors_{i}") for i in range(len(self.config.anchor_strides))]
+
+    @torch.no_grad()
+    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Detections:
+        """images f32 [B, H, W, 3] (normalized, padded to the canvas);
+        image_sizes int [B, 2] true (h, w). Returns padded Detections."""
+        return self.forward_test(images, image_sizes)
+
+    def forward_test(self, images, image_sizes) -> Detections:
+        with record_function("backbone"):
+            features = self.backbone(images.to(self.compute_dtype))
+        return self.detections_from_features(features, image_sizes)
+
+    def box_forward(self, features, boxes):
+        c = self.config
+        pooled = multilevel_roi_align(
+            features[: len(c.pooler_scales)], boxes, c.pooler_scales, c.box_pooler_resolution, c.box_pooler_sampling
+        )
+        b, s = pooled.shape[:2]
+        box = self.roi_heads.box
+        feats = box.feature_extractor(pooled.reshape(b * s, *pooled.shape[2:]))
+        logits, regs = box.predictor(feats)
+        return logits.reshape(b, s, -1), regs.reshape(b, s, -1), feats.reshape(b, s, -1)
+
+    def mask_forward(self, features, boxes):
+        """-> (logits [B, K, 2P, 2P, classes], features [B, K, P, P, 256])."""
+        c = self.config
+        pooled = multilevel_roi_align(
+            features[: len(c.pooler_scales)], boxes, c.pooler_scales, c.mask_pooler_resolution, c.mask_pooler_sampling
+        )
+        b, s, p = pooled.shape[:3]
+        mask = self.roi_heads.mask
+        x = mask.feature_extractor(pooled.reshape(b * s, p, p, -1).permute(0, 3, 1, 2))
+        logits = mask.predictor(x)
+        r = logits.shape[-1]
+        return (logits.permute(0, 2, 3, 1).reshape(b, s, r, r, -1),
+                x.permute(0, 2, 3, 1).reshape(b, s, p, p, -1))
+
+    def detections_from_features(self, features, image_sizes) -> Detections:
+        # the record_function labels name the stages in a torch.profiler trace
+        # (scripts/profile_torch_port.py); they do nothing when no profiler runs
+        c = self.config
+        with record_function("rpn_head"):
+            objectness, box_reg = self.rpn(features)
+        with record_function("rpn_select_proposals"):
+            proposals = select_proposals(
+                objectness, box_reg, self.anchors, image_sizes,
+                pre_nms_top_n=c.pre_nms_top_n_test,
+                post_nms_top_n=c.post_nms_top_n_test,
+                fpn_post_nms_top_n=c.fpn_post_nms_top_n_test,
+                nms_thresh=c.rpn_nms_thresh,
+                min_size=c.rpn_min_size,
+            )
+        with record_function("box_head"):
+            class_logits, box_regression, box_feats = self.box_forward(features, proposals.boxes)
+        with record_function("relation_nms"):
+            probs = torch.softmax(class_logits.float(), dim=-1)
+            out = self.relation_nms(box_feats, probs, box_regression, proposals.boxes, proposals.valid, image_sizes)
+            boxes, scores, labels, valid = relation_nms_inference(out, c.relation)
+        dets = Detections(boxes=boxes, scores=scores, labels=labels, valid=valid)
+        if c.mask_on:
+            with record_function("mask_head"):
+                mask_logits, mask_feats = self.mask_forward(features, boxes)
+            with record_function("mask_relation_ciam"):
+                if c.with_relation_mask:
+                    mask_logits = self.roi_heads.mask.mask_relation_module(mask_feats, mask_logits, labels, valid)
+                dets.masks = select_mask_probs(mask_logits, labels)
+        return dets
+
+
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller names another device; never a silent CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def build_model(config_path: str = FLAGSHIP_CONFIG, device=None, seed: int = 0, opts=()) -> MaskRCNN:
+    """The flagship model from a YAML config (plus yacs ``KEY VALUE`` overrides
+    in ``opts``) with random weights made from ``seed``, in eval mode."""
+    dev = resolve_device(device)
+    cfg = get_cfg()
+    cfg.merge_from_file(config_path)
+    cfg.merge_from_list(list(opts))
+    model = MaskRCNN(ModelConfig.from_cfg(cfg))
+    model.init_weights(torch.Generator().manual_seed(seed))
+    return model.to(dev)

@@ -1,0 +1,115 @@
+"""Package rules of the port: no JAX, the card by default, its own config.
+
+The import guard runs in a subprocess because this process has imported
+JAX already (tests/conftest.py).
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+import yaml
+
+import torch_port_util as U
+from mmt_psm_tpu_torch.config import get_cfg, load_yaml
+from mmt_psm_tpu_torch.models import build_model, resolve_device
+
+GUARD = r"""
+import importlib, pkgutil, sys
+import mmt_psm_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "mmt_psm_tpu"))
+print("MODULES", len([k for k in sys.modules if k.startswith("mmt_psm_tpu_torch")]))
+print("BAD", bad)
+"""
+
+
+def test_import_guard_no_jax():
+    env = dict(os.environ, PYTHONPATH=U.REPO)
+    out = subprocess.run([sys.executable, "-c", GUARD], capture_output=True, text=True, env=env, cwd=U.REPO,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
+    assert lines["BAD"] == "[]"
+    assert int(lines["MODULES"]) >= 20  # every module of the package was imported
+
+
+def test_sources_import_nothing_of_the_jax_package():
+    """A source check: ``mmt_psm_tpu`` is a prefix of ``mmt_psm_tpu_torch``."""
+    import re
+
+    pat = re.compile(r"^\s*(from|import)\s+(jax|flax|mmt_psm_tpu(?!_torch))\b", re.M)
+    root = os.path.join(U.REPO, "mmt_psm_tpu_torch")
+    offenders = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    if pat.search(fh.read()):
+                        offenders.append(f)
+    with open(os.path.join(U.REPO, "chip_smoke.py")) as fh:
+        if pat.search(fh.read()):
+            offenders.append("chip_smoke.py")
+    assert offenders == []
+
+
+def test_entry_point_raises_without_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_yaml_reader_matches_pyyaml():
+    with open(U.FLAGSHIP) as f:
+        text = f.read()
+    assert load_yaml(text) == yaml.safe_load(text)
+
+
+def test_flagship_config_matches_jax():
+    """The port's ModelConfig.from_cfg reads the flagship YAML as the JAX
+    package does: every field the two configs share is equal."""
+    import dataclasses
+
+    from mmt_psm_tpu.config import get_cfg as jax_get_cfg
+    from mmt_psm_tpu.models import ModelConfig as JaxModelConfig
+    from mmt_psm_tpu_torch.models import ModelConfig
+
+    jcfg = jax_get_cfg()
+    jcfg.merge_from_file(U.FLAGSHIP)
+    jm = JaxModelConfig.from_cfg(jcfg, train=False)
+    cfg = get_cfg()
+    cfg.merge_from_file(U.FLAGSHIP)
+    tm = ModelConfig.from_cfg(cfg)
+    shared = [f.name for f in dataclasses.fields(tm) if f.name not in ("relation", "relation_mask")]
+    for name in shared:
+        assert getattr(tm, name) == getattr(jm, name), name
+    assert dataclasses.asdict(tm.relation) == dataclasses.asdict(jm.relation)
+    assert dataclasses.asdict(tm.relation_mask) == dataclasses.asdict(jm.relation_mask)
+    assert tm.image_size == 1024 and tm.compute_dtype == "bfloat16"
+
+
+def test_build_model_on_cpu_at_full_width():
+    """The flagship at full width builds on an explicit CPU device (no forward)."""
+    m = build_model(device="cpu", seed=0)
+    assert m.config.image_size == 1024 and not m.training
+    assert sum(p.numel() for p in m.parameters()) > 40_000_000
+    assert m.anchors[0].shape == (256 * 256 * 3, 4)
+    a = build_model(device="cpu", seed=0).state_dict()
+    b = m.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)  # weights come from the seed
+
+
+def test_unsupported_settings_raise():
+    from mmt_psm_tpu_torch.models import ModelConfig
+
+    cfg = get_cfg()
+    cfg.merge_from_file(U.FLAGSHIP)
+    cfg.merge_from_list(["MODEL.RELATION_NMS.USE_RELATION_NMS", False])
+    with pytest.raises(NotImplementedError):
+        ModelConfig.from_cfg(cfg)
