@@ -52,3 +52,17 @@ def fpn_anchors(image_size: int, strides, sizes, aspect_ratios):
         grid_anchors(generate_cell_anchors(stride, (size,), aspect_ratios), image_size // stride, stride)
         for stride, size in zip(strides, sizes)
     ]
+
+
+def visibility(anchors, image_h, image_w, straddle_thresh: float = 0.0):
+    """Anchors inside the image by ``straddle_thresh`` (all of them when it
+    is negative). anchors [..., 4]; image_h/image_w broadcast against
+    ``anchors[..., 0]``."""
+    if straddle_thresh < 0:
+        return anchors[..., 0] == anchors[..., 0]
+    return (
+        (anchors[..., 0] >= -straddle_thresh)
+        & (anchors[..., 1] >= -straddle_thresh)
+        & (anchors[..., 2] < image_w + straddle_thresh)
+        & (anchors[..., 3] < image_h + straddle_thresh)
+    )

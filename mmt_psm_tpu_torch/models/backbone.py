@@ -10,9 +10,10 @@ from .resnet import ResNet
 
 
 class ResNetFPNBackbone(nn.Module):
-    def __init__(self, conv_body: str = "R-50-FPN", out_channels: int = 256, stride_in_1x1: bool = True):
+    def __init__(self, conv_body: str = "R-50-FPN", out_channels: int = 256, stride_in_1x1: bool = True,
+                 freeze_at: int = 2):
         super().__init__()
-        self.body = ResNet(conv_body=conv_body, stride_in_1x1=stride_in_1x1)
+        self.body = ResNet(conv_body=conv_body, stride_in_1x1=stride_in_1x1, freeze_at=freeze_at)
         self.fpn = FPN((256, 512, 1024, 2048), out_channels)
 
     def init_weights(self, gen: torch.Generator):

@@ -1,9 +1,13 @@
-"""RoI mask head at test time (port of ``mmt_psm_tpu/models/mask_head.py``).
+"""RoI mask head (port of ``mmt_psm_tpu/models/mask_head.py``).
 
 MaskRCNNFPNFeatureExtractor (14x14 pooled -> 4x conv256) and
 MaskRCNNC4Predictor (2x2/2 deconv + 1x1 logits). Activations run NCHW in
 channels_last memory; the head's inputs and outputs keep the JAX layouts
-([N, P, P, C] features, [B, K, R, R, classes] logits).
+([N, P, P, C] features, [B, K, R, R, classes] logits). In training the
+head sees the first ``MASK_MAX_POS`` positive RoIs of each image, its
+targets are the matched gt masks cropped to the RoI by ROIAlign at the
+output resolution and thresholded at 0.5 (``crop_masks_to_boxes``), and
+the loss is the BCE of the gt class's channel over the positives' pixels.
 """
 
 from __future__ import annotations
@@ -12,7 +16,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import losses as L
+from ..ops.pooler import _axis_samples
+from ..ops.topk import top_k
 from .layers import Conv2d, ConvTranspose2d, variance_scaling_
+
+_CROP_ROI_CHUNK = 32
 
 
 def kaiming_init(module: nn.Module, gen: torch.Generator):
@@ -57,3 +66,63 @@ def select_mask_probs(mask_logits, labels):
     lab = labels.clamp(min=0).long()
     idx = lab[:, :, None, None, None].expand(*mask_logits.shape[:4], 1)
     return torch.sigmoid(torch.gather(mask_logits.float(), -1, idx)[..., 0])
+
+
+def select_positive_rois(rois, max_pos: int):
+    """The first ``max_pos`` positive RoIs of each image, in slot order:
+    (boxes [B, K, 4], labels [B, K] (0 where not positive), matched gt
+    rows [B, K], valid [B, K])."""
+    max_pos = min(max_pos, rois.boxes.shape[1])
+    _, idx = top_k(rois.is_pos.float(), max_pos)  # stable: first positives first
+    v = torch.gather(rois.is_pos, 1, idx)
+    return (torch.gather(rois.boxes, 1, idx[..., None].expand(-1, -1, 4)),
+            torch.where(v, torch.gather(rois.labels, 1, idx), 0),
+            torch.gather(rois.matched_gt, 1, idx), v)
+
+
+def _dense_axis_weights(start, size, pooled: int, grid: int, dim: int):
+    """The JAX package's per-axis interpolation matrix A [R, pooled, dim]
+    (``ops/roi_align.py::_axis_weights``), built the same way: a weighted
+    one-hot per sample, summed over the bin's samples."""
+    low, high, w_low, w_high = _axis_samples(start, size, pooled, grid, torch.full_like(start, float(dim)))
+    r = start.shape[0]
+    oh = lambda i: F.one_hot(i, dim).float()  # noqa: E731
+    a = w_low[..., None] * oh(low) + w_high[..., None] * oh(high)  # [R, P*G, dim]
+    return a.reshape(r, pooled, grid, dim).sum(2)
+
+
+def crop_masks_to_boxes(gt_masks, gt_idx, boxes, resolution: int):
+    """Project each RoI's gt mask into the RoI at resolution x resolution:
+    single-level ROIAlign (scale 1, 2x2 samples) of the full-image mask,
+    then >= 0.5. gt_masks [B, M, Hm, Wm]; gt_idx [B, S] rows of it; boxes
+    [B, S, 4] in mask coordinates. Returns f32 [B, S, R, R].
+
+    The two contractions follow the JAX ``roi_align`` (rows, then columns)
+    so that values on the 0.5 threshold round the same way. Plain PyTorch:
+    the JAX package runs this on XLA, not in a Pallas kernel."""
+    b, s = gt_idx.shape
+    m, hm, wm = gt_masks.shape[1:]
+    flat_masks = gt_masks.reshape(b * m, hm, wm)
+    rows = (torch.arange(b, device=gt_idx.device)[:, None] * m + gt_idx).reshape(-1)
+    bx = boxes.reshape(-1, 4).float()
+    start_x, start_y = bx[:, 0], bx[:, 1]
+    roi_w = (bx[:, 2] - start_x).clamp(min=1.0)
+    roi_h = (bx[:, 3] - start_y).clamp(min=1.0)
+    out = []
+    for lo in range(0, b * s, _CROP_ROI_CHUNK):
+        sl = slice(lo, lo + _CROP_ROI_CHUNK)
+        ay = _dense_axis_weights(start_y[sl], roi_h[sl], resolution, 2, hm)  # [r, R, Hm]
+        ax = _dense_axis_weights(start_x[sl], roi_w[sl], resolution, 2, wm)  # [r, R, Wm]
+        tmp = torch.bmm(ay, flat_masks[rows[sl]].float())  # [r, R, Wm]
+        out.append(torch.bmm(tmp, ax.transpose(1, 2)))  # [r, R, R]
+    return (torch.cat(out) >= 0.5).float().reshape(b, s, resolution, resolution)
+
+
+def mask_head_loss(mask_logits, mask_targets, labels, valid):
+    """Mean BCE of the gt class's channel over the positives' pixels.
+    mask_logits [B, S, R, R, C]; mask_targets [B, S, R, R]; labels, valid [B, S]."""
+    lab = labels.clamp(min=0).long()
+    sel = torch.gather(mask_logits.float(), -1, lab[:, :, None, None, None].expand(*mask_logits.shape[:4], 1))[..., 0]
+    w = valid.float()[:, :, None, None]
+    denom = (w.sum() * sel.shape[-1] * sel.shape[-2]).clamp(min=1.0)
+    return (L.bce_with_logits(sel, mask_targets) * w).sum() / denom

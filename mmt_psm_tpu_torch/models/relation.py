@@ -1,4 +1,4 @@
-"""IR-Net relation-NMS at test time (port of ``mmt_psm_tpu/models/relation.py``).
+"""IR-Net relation-NMS (port of ``mmt_psm_tpu/models/relation.py``).
 
 The top FIRST_N proposals of each foreground class, boxes decoded per
 class and clipped; a 128-d appearance embedding plus a sinusoidal rank
@@ -6,9 +6,13 @@ embedding; 16-group attention with a geometric gate
 log(relu(WG(pos))) + qk/sqrt(d) and a top-K sparse softmax; a grouped
 1x1 output conv; a per-threshold classifier. At test time the merged
 scores go through per-class greedy NMS (0.5 for nuclei, POS_NMS for
-cytoplasm) and a global cap. Everything here runs in float32 and is
+cytoplasm) and a global cap; in training each gt's best-scoring box above
+a threshold is the target, as 1 or, with REG_IOU, as its IoU (MSE loss,
+else BCE on score x logit). Everything here runs in float32 and is
 batched over images; all per-class NMS problems of the batch go to one
-launch of kernel K1.
+launch of kernel K1. No gradient is stopped: the head trains the box
+head's features, scores and regression through it, and with REG_IOU
+through its IoU targets too, as in the JAX graph.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from torch import nn
 from ..ops.box_coder import decode
 from ..ops.nms import nms_topk
 from ..ops.topk import top_k
-from ..structures.boxes import clip_to_image
+from ..structures.boxes import box_iou, clip_to_image
 from .layers import Conv2d, Linear, variance_scaling_
 
 
@@ -192,6 +196,59 @@ class RelationNMS(nn.Module):
             "sorted_valid": sorted_valid,
             "sorted_idx": idx,
         }
+
+
+def prepare_nms_labels(sorted_boxes, sorted_scores, gt_boxes, gt_labels, gt_valid, threshs, reg_iou: bool):
+    """Per-class training targets [B, N, C-1, T]: for each gt of the class
+    and each threshold, the highest-scoring box whose best-IoU gt it is,
+    with IoU above the threshold, gets 1 (its IoU with REG_IOU).
+
+    sorted_boxes [B, N, C-1, 4]; sorted_scores [B, N, C-1]; gt [B, M, ...].
+    Differentiable in the boxes where ``reg_iou`` (the JAX graph's IoU
+    targets carry gradient)."""
+    bsz, n, c_fg = sorted_scores.shape
+    m = gt_boxes.shape[1]
+    outs = []
+    for ci in range(c_fg):
+        boxes = sorted_boxes[:, :, ci, :]
+        score = sorted_scores[:, :, ci]
+        is_cls = gt_valid & (gt_labels == ci + 1)  # [B, M]
+        iou = torch.where(is_cls[:, None, :], box_iou(boxes, gt_boxes), 0.0)  # [B, N, M]
+        eye = F.one_hot(iou.argmax(-1), m).to(iou.dtype)  # each box's best gt
+        has_gt = is_cls.any(-1, keepdim=True).to(iou.dtype)  # [B, 1]
+        per_t = []
+        for t in threshs:
+            overlap = (iou > t) & is_cls[:, None, :]
+            overlap_score = score[:, :, None] * overlap * eye
+            max_score_dt = overlap_score.argmax(1)  # [B, M]
+            valid_dt = overlap.any(-1)  # [B, N]
+            hits = torch.zeros(bsz, n, dtype=torch.long, device=iou.device).scatter_add(1, max_score_dt,
+                                                                                          is_cls.long())
+            chosen = (hits > 0) & valid_dt
+            if reg_iou:
+                overlap_iou = iou * overlap * eye
+                val_per_gt = torch.gather(overlap_iou, 1, max_score_dt[:, None, :])[:, 0, :]  # [B, M]
+                vals = torch.zeros(bsz, n, dtype=iou.dtype, device=iou.device).scatter_reduce(
+                    1, max_score_dt, torch.where(is_cls, val_per_gt, 0.0), "amax")
+                per_t.append(torch.where(chosen, vals, 0.0) * has_gt)
+            else:
+                per_t.append(chosen.to(iou.dtype) * has_gt)
+        outs.append(torch.stack(per_t, -1))  # [B, N, T]
+    return torch.stack(outs, 2)
+
+
+def relation_nms_loss(out, gt_boxes, gt_labels, gt_valid, cfg: RelationNMSConfig):
+    """The mean over images of each image's relation-NMS loss."""
+    labels = prepare_nms_labels(out["sorted_boxes"], out["sorted_scores"], gt_boxes, gt_labels, gt_valid,
+                                cfg.threshs, cfg.reg_iou)
+    valid = out["sorted_valid"][..., None].float()
+    if cfg.reg_iou:
+        per_item = (labels - out["logits"]) ** 2
+    else:
+        p = (out["sorted_scores"][..., None] * out["logits"]).clamp(1e-6, 1 - 1e-6)
+        per_item = -(labels * torch.log(p) + (1 - labels) * torch.log(1 - p))
+    per_image = (per_item * valid).sum((1, 2, 3)) / valid.sum((1, 2, 3)).clamp(min=1.0)
+    return per_image.mean()
 
 
 def relation_nms_inference(out, cfg: RelationNMSConfig):

@@ -6,6 +6,11 @@ then bottleneck stages with the stride on the first 1x1 conv
 (STRIDE_IN_1X1). Module names are maskrcnn-benchmark's
 (``layer1.0.conv1``, ``layer1.0.downsample.0``) so ``state_dict`` keys
 match the reference checkpoint.
+
+FREEZE_CONV_BODY_AT as the JAX model does it: the stem's output and the
+output of every stage below ``freeze_at`` are detached (its
+``stop_gradient``, resnet.py:98-99, 119-120), and those modules' weights
+do not require gradients (the reference's ``requires_grad_(False)``).
 """
 
 from __future__ import annotations
@@ -59,8 +64,10 @@ class ResNet(nn.Module):
     """Returns the outputs of the four stages (C2..C5)."""
 
     def __init__(self, conv_body: str = "R-50-FPN", stem_out_channels: int = 64,
-                 res2_out_channels: int = 256, width_per_group: int = 64, stride_in_1x1: bool = True):
+                 res2_out_channels: int = 256, width_per_group: int = 64, stride_in_1x1: bool = True,
+                 freeze_at: int = 2):
         super().__init__()
+        self.freeze_at = freeze_at
         self.stem = Stem(stem_out_channels)
         in_ch = stem_out_channels
         self.stages = []
@@ -73,6 +80,12 @@ class ResNet(nn.Module):
                 in_ch = out
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
             self.stages.append(f"layer{i + 1}")
+        for name in self.frozen_modules():
+            getattr(self, name).requires_grad_(False)
+
+    def frozen_modules(self):
+        """Names of the stem and the stages below ``freeze_at``."""
+        return (["stem"] if self.freeze_at >= 1 else []) + self.stages[: max(self.freeze_at - 1, 0)]
 
     def init_weights(self, gen: torch.Generator):
         # flax defaults: lecun normal for the body convs, kaiming fan_out for the stem
@@ -85,8 +98,12 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = self.stem(x)
+        if self.freeze_at >= 1:
+            x = x.detach()
         outs = []
-        for name in self.stages:
+        for i, name in enumerate(self.stages):
             x = getattr(self, name)(x)
+            if self.freeze_at >= i + 2:
+                x = x.detach()
             outs.append(x)
         return outs

@@ -1,4 +1,4 @@
-"""Faster R-CNN box decoding (port of ``mmt_psm_tpu/ops/box_coder.py``).
+"""Faster R-CNN box encoding and decoding (port of ``mmt_psm_tpu/ops/box_coder.py``).
 
 +1 width convention, per-coordinate weights, exp clipped at log(1000/16),
 and the reference's asymmetric "-1" on x2/y2.
@@ -12,6 +12,30 @@ import torch
 
 BBOX_XFORM_CLIP = math.log(1000.0 / 16)
 TO_REMOVE = 1.0
+
+
+def encode(reference_boxes: torch.Tensor, proposals: torch.Tensor, weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Encode ``reference_boxes`` (targets) against ``proposals``, both
+    ``[..., N, 4]`` xyxy -> ``[..., N, 4]`` (dx, dy, dw, dh)."""
+    ex_w = proposals[..., 2] - proposals[..., 0] + TO_REMOVE
+    ex_h = proposals[..., 3] - proposals[..., 1] + TO_REMOVE
+    ex_cx = proposals[..., 0] + 0.5 * ex_w
+    ex_cy = proposals[..., 1] + 0.5 * ex_h
+
+    gt_w = reference_boxes[..., 2] - reference_boxes[..., 0] + TO_REMOVE
+    gt_h = reference_boxes[..., 3] - reference_boxes[..., 1] + TO_REMOVE
+    gt_cx = reference_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = reference_boxes[..., 1] + 0.5 * gt_h
+
+    wx, wy, ww, wh = weights
+    # padded zero-size boxes must not give nan/inf
+    ex_w, ex_h = ex_w.clamp(min=1e-6), ex_h.clamp(min=1e-6)
+    gt_w, gt_h = gt_w.clamp(min=1e-6), gt_h.clamp(min=1e-6)
+    dx = wx * (gt_cx - ex_cx) / ex_w
+    dy = wy * (gt_cy - ex_cy) / ex_h
+    dw = ww * torch.log(gt_w / ex_w)
+    dh = wh * torch.log(gt_h / ex_h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def decode(rel_codes: torch.Tensor, boxes: torch.Tensor, weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:

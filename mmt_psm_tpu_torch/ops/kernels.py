@@ -39,7 +39,12 @@ SIGNATURES = {
             ctypes.POINTER(_ptr), ctypes.POINTER(_int), ctypes.POINTER(_int),
             ctypes.POINTER(ctypes.c_float), _int, _ptr, _ptr, _ptr,
             _int, _int, _int, _int, _int, _int, _ptr,
-        )
+        ),
+        "roi_align_backward": (
+            ctypes.POINTER(_int), ctypes.POINTER(_int), ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_longlong), _int, ctypes.c_longlong, _ptr, _ptr, _ptr, _ptr, _ptr,
+            _int, _int, _int, _int, _int, _int, _ptr,
+        ),
     },
 }
 

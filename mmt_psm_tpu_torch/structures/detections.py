@@ -19,6 +19,14 @@ class Proposals:
 
 
 @dataclasses.dataclass
+class GroundTruth:
+    boxes: torch.Tensor  # f32 [B, M, 4]
+    labels: torch.Tensor  # int [B, M] (1..C-1)
+    valid: torch.Tensor  # bool [B, M]
+    masks: torch.Tensor | None = None  # u8/f32 [B, M, Hm, Wm] full-image instance masks
+
+
+@dataclasses.dataclass
 class Detections:
     boxes: torch.Tensor  # f32 [B, K, 4]
     scores: torch.Tensor  # f32 [B, K]

@@ -93,7 +93,8 @@ def load_jax_params(model: torch.nn.Module, flat: Dict[str, np.ndarray], pooled_
     """Copy every parameter and buffer of ``model.state_dict()`` from ``flat``.
 
     Raises if a port tensor has no JAX counterpart or the shapes disagree,
-    so a partial load cannot pass silently.
+    so a partial load cannot pass silently. JAX parameters the port does
+    not build (the mean teacher's ``hint_adaptor/*``) are not read.
     """
     sd = model.state_dict()
     new = {}

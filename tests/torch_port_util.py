@@ -49,16 +49,19 @@ def flatten(tree, prefix=()):
     return out
 
 
-def configs():
-    """(JAX ModelConfig, port ModelConfig) of the flagship YAML, cut to SMALL."""
+def configs(**extra):
+    """(JAX ModelConfig, port ModelConfig) of the flagship YAML, cut to SMALL
+    (plus ``extra`` fields, e.g. TRAIN_SMALL)."""
     jcfg = jax_get_cfg()
     jcfg.merge_from_file(FLAGSHIP)
     jm = JaxModelConfig.from_cfg(jcfg, train=False)
-    jm = dataclasses.replace(jm, **SMALL, relation_mask=dataclasses.replace(jm.relation_mask, compute_dtype="float32"))
+    jm = dataclasses.replace(jm, **SMALL, **extra,
+                             relation_mask=dataclasses.replace(jm.relation_mask, compute_dtype="float32"))
     tcfg = get_cfg()
     tcfg.merge_from_file(FLAGSHIP)
     tm = ModelConfig.from_cfg(tcfg)
-    tm = dataclasses.replace(tm, **SMALL, relation_mask=dataclasses.replace(tm.relation_mask, compute_dtype="float32"))
+    tm = dataclasses.replace(tm, **SMALL, **extra,
+                             relation_mask=dataclasses.replace(tm.relation_mask, compute_dtype="float32"))
     return jm, tm
 
 
@@ -69,9 +72,9 @@ def inputs(seed: int = 0, batch: int = 2, size: int = 128):
     return images, sizes
 
 
-def build_pair(seed: int = 0):
-    """-> (jax model, jax params, port model) sharing one set of weights."""
-    jm, tm = configs()
+def build_pair(seed: int = 0, **extra):
+    """-> (jax model, jax params, port model, flat params) sharing one set of weights."""
+    jm, tm = configs(**extra)
     jmodel = JaxMaskRCNN(config=jm)
     images, sizes = inputs()
     params = jax.jit(lambda: jmodel.init({"params": jax.random.PRNGKey(seed)}, jnp.asarray(images),
@@ -119,3 +122,106 @@ def assert_close(got, want, atol, rtol=0.0, what=""):
     bound = atol + rtol * np.abs(want.astype(np.float64))
     worst = float((err - bound).max()) if err.size else 0.0
     assert worst <= 0, f"{what}: max abs err {err.max():.3g} exceeds atol {atol} + rtol {rtol}"
+
+
+# ------------------------------------------------------------------ training
+# the supervised step's counts cut as the inference ones are: 64 proposals
+# per level and per batch, 64 sampled RoIs per image, 16 mask RoIs, 8 gt rows;
+# no dropout, so both packages compute the same function
+TRAIN_SMALL = dict(pre_nms_top_n_train=64, post_nms_top_n_train=64, fpn_post_nms_top_n_train=64,
+                   box_batch_per_image=64, mask_max_pos=16, box_head_dropout=0.0)
+MAX_GT = 8
+
+
+def train_batch(seed: int = 0, batch: int = 2, size: int = 128):
+    """A synthetic batch (the port's copy of the data generator) as numpy,
+    the image normalized as the train step takes it."""
+    from mmt_psm_tpu_torch.data.synthetic import generate_batch, normalize_image
+
+    b = generate_batch(seed, batch, image_size=size, max_instances=MAX_GT)
+    b["image"] = normalize_image(b["image"])
+    return b
+
+
+def jax_gt(batch):
+    from mmt_psm_tpu.structures.detections import GroundTruth
+
+    return GroundTruth(boxes=jnp.asarray(batch["boxes"]), labels=jnp.asarray(batch["labels"]),
+                       valid=jnp.asarray(batch["gt_valid"]), masks=jnp.asarray(batch["masks"]))
+
+
+def torch_gt(batch):
+    from mmt_psm_tpu_torch.structures import GroundTruth
+
+    return GroundTruth(boxes=t(batch["boxes"]), labels=t(batch["labels"]), valid=t(batch["gt_valid"]),
+                       masks=t(batch["masks"]))
+
+
+def _sample_with_draws(r, labels, batch_size: int, positive_fraction: float):
+    """The body of ``mmt_psm_tpu.ops.sampler.sample`` with its uniform draws
+    ``r`` given instead of drawn from a key."""
+    n = labels.shape[0]
+    is_pos, is_neg = labels >= 1, labels == 0
+    pos_order = jnp.argsort(jnp.where(is_pos, r, 2.0))
+    neg_order = jnp.argsort(jnp.where(is_neg, r, 2.0))
+    max_pos = int(batch_size * positive_fraction)
+    num_pos = jnp.minimum(jnp.sum(is_pos), max_pos)
+    num_neg = jnp.minimum(jnp.sum(is_neg), batch_size - num_pos)
+    slot = jnp.arange(batch_size)
+    take_pos = slot < num_pos
+    idx = jnp.where(take_pos, pos_order[jnp.clip(slot, 0, n - 1)],
+                    neg_order[jnp.clip(slot - num_pos, 0, n - 1)]).astype(jnp.int32)
+    valid = slot < (num_pos + num_neg)
+    return idx, take_pos & valid, valid
+
+
+class _IndexKeys:
+    """Stands in for the ``jax`` module inside the JAX rpn and box_head
+    modules: ``jax.random.split(key, n)`` gives image i the key (i, i), so
+    the replaced sampler knows which image's draws to take."""
+
+    class random:
+        @staticmethod
+        def split(key, n):
+            i = jnp.arange(n, dtype=jnp.uint32)
+            return jnp.stack([i, i], 1)
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+
+def same_draws(mp, batch: int, seed: int = 0):
+    """Make both packages' samplers take the same uniform draws.
+
+    ``mp`` is a ``pytest.MonkeyPatch``. The draws of a batch of ``batch``
+    images with n candidates each (the RPN's anchors, the box head's
+    proposals) are one numpy table made from (``seed``, n). The port's
+    draws come from ``ops.sampler.uniform``; the JAX ``sample`` is replaced
+    by one that reads the same table."""
+    from mmt_psm_tpu.models import box_head as jbh
+    from mmt_psm_tpu.models import rpn as jrpn
+    from mmt_psm_tpu_torch.ops import sampler
+
+    def table(n):
+        return np.random.default_rng([seed, n]).uniform(size=(batch, n)).astype(np.float32)
+
+    def port_uniform(gen, shape, device):
+        assert tuple(shape)[0] == batch, shape
+        return torch.from_numpy(table(shape[-1])).to(device)
+
+    def jax_sample(key, labels, batch_size, positive_fraction):
+        r = jnp.asarray(table(labels.shape[0]))[key[0]]
+        return _sample_with_draws(r, labels, batch_size, positive_fraction)
+
+    mp.setattr(sampler, "uniform", port_uniform)
+    for mod in (jrpn, jbh):
+        mp.setattr(mod, "sample", jax_sample)
+        mp.setattr(mod, "jax", _IndexKeys())
+
+
+def port_grad_of(name: str, flat_grads, pooled_chw=(256, 7, 7)):
+    """The JAX gradient of the port tensor ``name`` in the port's layout."""
+    from mmt_psm_tpu_torch.utils.jax_params import _to_torch_layout, flax_key
+
+    key, kind = flax_key(name)
+    return np.array(_to_torch_layout(kind, key, np.asarray(flat_grads[key]), pooled_chw))
