@@ -10,11 +10,14 @@ line is printed):
      flagship's shapes and on adversarial cases: identical keep masks;
   4. kernel K2 (multi-level ROIAlign) against its plain version on the
      card at the box-head and mask-head shapes, f32 and bf16, with RoIs
-     far larger than the TPU kernel's window;
+     far larger than the TPU kernel's window, and at 512 channels;
   5. kernel K3 (multi-level ROIAlign backward) against its plain version
      on the card at the train step's box-head and mask-head shapes, f32
-     and bf16, with oversize, border and clustered RoIs whose atomic adds
-     collide;
+     and bf16, with oversize, border and clustered RoIs that add into the
+     same cells, and on RoIs that K3's tiles must split or drop:
+     on tile borders, partly outside the map, ~32 cells on P5, levels no
+     RoI maps to, an all-zero cotangent; every K3 call launched twice and
+     the two results bit-identical;
   6. the flagship path (configs/pap/mmt_psm_r50_fpn.yaml, 1024 canvas,
      bf16, seeded random weights) on 3 batches of 4 images through
      ``build_model``; one forward runs with synchronising calls made
@@ -37,7 +40,9 @@ line is printed):
      head's and the mask head's) or of one train step (K3: the box head's
      and the mask head's), its plain version's time and its bound on this
      card, the K1 and K2 numbers of the train step under ``*_train`` keys,
-     after lines with each call's own times;
+     after lines with each call's own times. A kernel's time is the device
+     time of the kernels its wrapper launches (torch.profiler), without the
+     host's time to launch them; a plain version's is CUDA events around it;
  10. the throughput in patches/s and images/s beside the card's name and
      power limit.
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -48,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -63,10 +69,10 @@ BATCH, BATCHES, CANVAS = 4, 3, 1024
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 # bf16 comparison: the same f32 sum in another order, rounded once to bf16
 BF16_RTOL, ATOL = 2.0**-7, 1e-5
-# K3 f32: sums of up to a few hundred weighted cotangents per cell, in atomic order
+# K3 f32: sums of up to a few hundred weighted cotangents per cell, in another order
 K3_F32_ATOL = 1e-4
 # the f32 train step with the kernels against the plain versions: the same
-# arithmetic with float32 sums in other orders (K3's atomics among them).
+# arithmetic with float32 sums in other orders (K3's among them).
 # The relation head's geometric gate log(max(relu(WG(pos)), 1e-6)) has a
 # pole: a gate within float32 noise of 0 takes a gradient of up to 1e6, so
 # the comparison sets WG's bias to WG_BIAS in both models and every gate
@@ -75,9 +81,13 @@ K3_F32_ATOL = 1e-4
 # float32 rounding puts a ReLU input of the box head on the other side of
 # 0, one unit flips for one RoI, and that RoI's changed cotangent reaches
 # every backbone gradient through K3. With K3 alone swapped the forward is
-# the same, and only the order of K3's atomic float32 adds differs:
+# the same, and only the order of K3's float32 sums differs:
 # K3_GRAD_RTOL.
 LOSS_RTOL, GRAD_RTOL, K3_GRAD_RTOL, WG_BIAS = 1e-4, 1e-2, 1e-4, 5.0
+# the __global__ functions of csrc/*.cu that each wrapper launches
+K1_KERNELS = ("nms_mask_kernel", "nms_scan_kernel")
+K2_KERNELS = ("roi_align_kernel",)
+K3_KERNELS = ("roi_footprint_kernel", "roi_align_backward_kernel")
 
 
 def phase(name, fn):
@@ -99,6 +109,36 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Device ms per call of each kernel and memset ``fn`` launches, by the
+    profiler's name, over ``iters`` calls after warm-up (torch.profiler:
+    the kernels' own time, without the host's time to launch them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        if us > 0 and str(e.device_type).endswith("CUDA"):
+            out[e.key] = us / 1e3 / iters
+    return out
+
+
+def kernel_ms(fn, kernels):
+    """Device ms per call of the named kernels of ``csrc/`` that ``fn`` launches."""
+    times = device_ms(fn)
+    ms = sum(v for k, v in times.items() if any(re.search(rf"\b{n}\b", k) for n in kernels))
+    if ms <= 0:
+        raise AssertionError(f"none of {kernels} ran on the device: {sorted(times)}")
+    return ms
 
 
 def card_line():
@@ -191,7 +231,7 @@ def time_nms(cases, dev):
         vs = torch.gather(v, 1, order)
         th = N._thresholds(t, bs.shape[0], dev)
         supp = N.suppress_plain(bs, vs, th)
-        per_call[name] = (cuda_ms(lambda: N.suppress_cuda(bs, vs, th)),
+        per_call[name] = (kernel_ms(lambda: N.suppress_cuda(bs, vs, th), K1_KERNELS),
                           cuda_ms(lambda: N.suppress_plain(bs, vs, th), iters=3, warmup=1))
         # least work greedy NMS needs on these data: each kept box against every later box
         n = bs.shape[1]
@@ -256,6 +296,16 @@ def check_roi_align(dev, stats):
             if feats is feats32:
                 worst = max(worst, float(err.max()))
         timed["box_head" if p == 7 else "mask_head"] = (boxes, p)
+    # twice the FPN's width: a block's lanes loop over two 256-channel chunks
+    wide = [torch.randn(2, CANVAS // 4 >> i, CANVAS // 4 >> i, 512, generator=gen, device=dev) for i in range(4)]
+    boxes = random_boxes(gen, 2, 180, CANVAS, dev)
+    for feats, rtol in ((wide, 0.0), ([f.to(torch.bfloat16) for f in wide], BF16_RTOL)):
+        got = Pm.multilevel_roi_align(feats, boxes, scales, 7, 2)
+        want = Pm.multilevel_roi_align_plain(feats, boxes, scales, 7, 2)
+        err = (got.float() - want.float()).abs()
+        if float((err - ATOL - rtol * want.float().abs()).max()) > 0:
+            raise AssertionError(f"K2 C=512 {feats[0].dtype}: max err {float(err.max())}")
+    del wide
     # time the kernel and its plain version on the flagship forward's two
     # calls, the box head's and the mask head's, and on the train step's two
     # (512 sampled RoIs per image at P = 7, 128 mask RoIs at P = 14), in bf16
@@ -280,7 +330,7 @@ def time_roi_align(feats, calls, scales):
 
     per_call, nbytes, ops = {}, 0, 0.0
     for name, (boxes, p) in calls.items():
-        per_call[name] = (cuda_ms(lambda: Pm.multilevel_roi_align_cuda(feats, boxes, scales, p, 2)),
+        per_call[name] = (kernel_ms(lambda: Pm.multilevel_roi_align_cuda(feats, boxes, scales, p, 2), K2_KERNELS),
                           cuda_ms(lambda: Pm.multilevel_roi_align_plain(feats, boxes, scales, p, 2),
                                   iters=3, warmup=1))
         out_elems = boxes.shape[0] * boxes.shape[1] * p * p * 256
@@ -293,10 +343,53 @@ def time_roi_align(feats, calls, scales):
 # ------------------------------------------------- K3 ROIAlign backward
 def cluster_boxes(gen, b, n, dev):
     """n RoIs in clusters of 16 boxes within 2 px of each other, so that
-    K3's atomic adds into the same gradient cells collide."""
+    K3 adds many RoIs' cotangents into the same gradient cells."""
     centres = random_boxes(gen, b, n // 16 + 1, CANVAS, dev)
     boxes = centres.repeat_interleave(16, dim=1)[:, :n]
     return boxes + 2.0 * torch.rand(b, n, 4, generator=gen, device=dev)
+
+
+def edge_boxes(dev):
+    """RoIs that K3's tiles must split or drop right, [24 + 8, 4]
+    on the canvas: 24 level-0 RoIs whose samples straddle tile borders
+    (tiles are 16 px apart there), RoIs partly or mostly outside the map,
+    and RoIs of ~32 cells on P5 (8 tiles a side) and ~20 on P4."""
+    k = torch.arange(24, dtype=torch.float32, device=dev)
+    x0, y0 = 32.0 * (k % 6 + 1) - 2.0 + 0.25 * (k % 4), 32.0 * (k // 6 + 1) - 1.0
+    border = torch.stack([x0, y0, x0 + 29.0 + k, y0 + 31.0], -1)
+    other = torch.tensor([[-40.0, -30.0, 60.0, 50.0], [980.0, 990.0, 1100.0, 1080.0], [-300.0, 400.0, 200.0, 700.0],
+                          [700.0, -500.0, 1300.0, 300.0], [-900.0, -900.0, 1900.0, 1900.0], [0.0, 0.0, 1023.0, 1023.0],
+                          [10.0, 20.0, 1000.0, 990.0], [100.0, 60.0, 420.0, 380.0]], device=dev)
+    return torch.cat([border, other])
+
+
+def k3_against_plain(g, boxes, shapes, scales, p, what):
+    """K3 launched twice (bit-identical) and held to its plain version;
+    returns the largest f32 difference."""
+    from mmt_psm_tpu_torch.ops import pooler as Pm
+
+    got = Pm.multilevel_roi_align_backward_cuda(g, boxes, shapes, scales, p, 2)
+    again = Pm.multilevel_roi_align_backward_cuda(g, boxes, shapes, scales, p, 2)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K3 {what} {g.dtype}: two launches on the same inputs differ")
+    want = Pm.multilevel_roi_align_backward_plain(g, boxes, shapes, scales, p, 2)
+    used = set(Pm._levels(boxes, scales).flatten().tolist())
+    worst = 0.0
+    for lv, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != g.dtype or a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"K3 {what} level {lv}: {a.dtype} {tuple(a.shape)} or non-finite")
+        if (lv not in used or not g.any()) and a.any():
+            raise AssertionError(f"K3 {what} level {lv}: no cotangent reaches it, yet it is not all zero")
+        err = float((a.float() - b.float()).abs().max())
+        ref = float(b.float().abs().max())
+        # f32: the same sums as the plain index_add_, in another order;
+        # bf16: that f32 sum rounded once, so one bf16 rounding step at most
+        ok = err <= K3_F32_ATOL if g.dtype == torch.float32 else err <= BF16_RTOL * ref
+        if not ok:
+            raise AssertionError(f"K3 {what} {g.dtype} level {lv}: max err {err} (max |ref| {ref})")
+        if g.dtype == torch.float32:
+            worst = max(worst, err)
+    return worst
 
 
 def check_roi_align_backward(dev, stats):
@@ -305,28 +398,22 @@ def check_roi_align_backward(dev, stats):
     gen = torch.Generator(device=dev).manual_seed(5)
     scales = (0.25, 0.125, 0.0625, 0.03125)
     shapes = [(BATCH, CANVAS // 4 >> i, CANVAS // 4 >> i, 256) for i in range(4)]
+    edges = edge_boxes(dev).expand(BATCH, -1, -1).contiguous()
+    for what, boxes, zero in (("tile edges", edges, False), ("levels 1-3 empty", edges[:, :24].contiguous(), False),
+                              ("zero cotangent", edges, True)):
+        g = torch.randn(BATCH, boxes.shape[1], 7, 7, 256, generator=gen, device=dev) * (0.0 if zero else 1.0)
+        for gd in (g, g.to(torch.bfloat16)):
+            k3_against_plain(gd, boxes, shapes, scales, 7, what)
     worst, per_call, nbytes, ops = 0.0, {}, 0, 0.0
     # the train step's two calls: 512 sampled RoIs per image at P = 7, 128 mask RoIs at P = 14
     for name, n, p in (("box_head", 512, 7), ("mask_head", 128, 14)):
         boxes = torch.cat([random_boxes(gen, BATCH, n // 2, CANVAS, dev), cluster_boxes(gen, BATCH, n - n // 2, dev)], 1)
         g32 = torch.randn(BATCH, n, p, p, 256, generator=gen, device=dev)
-        for g in (g32, g32.to(torch.bfloat16)):
-            got = Pm.multilevel_roi_align_backward_cuda(g, boxes, shapes, scales, p, 2)
-            want = Pm.multilevel_roi_align_backward_plain(g, boxes, shapes, scales, p, 2)
-            for lv, (a, b) in enumerate(zip(got, want)):
-                if a.dtype != g.dtype or a.shape != b.shape or not torch.isfinite(a).all():
-                    raise AssertionError(f"K3 {name} level {lv}: {a.dtype} {tuple(a.shape)} or non-finite")
-                err = float((a.float() - b.float()).abs().max())
-                ref = float(b.float().abs().max())
-                # f32: the same sums as the plain index_add_, in another (atomic) order;
-                # bf16: that f32 sum rounded once, so one bf16 rounding step at most
-                ok = err <= K3_F32_ATOL if g.dtype == torch.float32 else err <= BF16_RTOL * ref
-                if not ok:
-                    raise AssertionError(f"K3 {name} {g.dtype} level {lv}: max err {err} (max |ref| {ref})")
-                if g.dtype == torch.float32:
-                    worst = max(worst, err)
         g16 = g32.to(torch.bfloat16)
-        per_call[name] = (cuda_ms(lambda: Pm.multilevel_roi_align_backward_cuda(g16, boxes, shapes, scales, p, 2)),
+        worst = max(worst, k3_against_plain(g32, boxes, shapes, scales, p, name))
+        k3_against_plain(g16, boxes, shapes, scales, p, name)
+        per_call[name] = (kernel_ms(lambda: Pm.multilevel_roi_align_backward_cuda(g16, boxes, shapes, scales, p, 2),
+                                    K3_KERNELS),
                           cuda_ms(lambda: Pm.multilevel_roi_align_backward_plain(g16, boxes, shapes, scales, p, 2),
                                   iters=3, warmup=1))
         # the cotangent, boxes and levels read once, every cell of the gradient maps written once

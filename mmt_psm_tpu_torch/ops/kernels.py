@@ -42,7 +42,7 @@ SIGNATURES = {
         ),
         "roi_align_backward": (
             ctypes.POINTER(_int), ctypes.POINTER(_int), ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_longlong), _int, ctypes.c_longlong, _ptr, _ptr, _ptr, _ptr, _ptr,
+            ctypes.POINTER(ctypes.c_longlong), _int, _ptr, _ptr, _ptr, _ptr, _ptr,
             _int, _int, _int, _int, _int, _int, _ptr,
         ),
     },

@@ -117,6 +117,15 @@ def multilevel_roi_align_plain(features, boxes, scales, output_size: int, sampli
     return torch.cat(out).reshape(b, n, pooled, pooled, c)
 
 
+def _check_vector_loads(c: int, tensors, what: str):
+    """The kernels move 8 channels a lane with 16-byte loads and stores."""
+    if c % 8 != 0:
+        raise ValueError(f"{what}: the channel count must be a multiple of 8, got {c}")
+    for t in tensors:
+        if t.data_ptr() % 16 != 0:
+            raise ValueError(f"{what}: tensor base {t.data_ptr():#x} is not 16-byte aligned")
+
+
 def multilevel_roi_align_cuda(features, boxes, scales, output_size: int, sampling_ratio: int):
     """Kernel K2: one launch pools every RoI of the batch on its level."""
     if len(features) != len(scales) or not 1 <= len(features) <= 4:
@@ -133,6 +142,7 @@ def multilevel_roi_align_cuda(features, boxes, scales, output_size: int, samplin
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be [B, N, 4], got {tuple(boxes.shape)}")
     feats = [f.contiguous() for f in features]
+    _check_vector_loads(c, feats, "multilevel_roi_align")
     boxes = boxes.to(torch.float32).contiguous()
     levels = _levels(boxes, scales).contiguous()
     out = torch.empty((b, n, output_size, output_size, c), dtype=dtype, device=dev)
@@ -210,7 +220,8 @@ def multilevel_roi_align_backward_plain(grad, boxes, shapes, scales, output_size
 
 
 def multilevel_roi_align_backward_cuda(grad, boxes, shapes, scales, output_size: int, sampling_ratio: int):
-    """Kernel K3: one launch scatters every RoI's cotangent into its level."""
+    """Kernel K3: one launch writes every level's gradient map, each cell
+    once, from the cotangents of the RoIs whose samples reach it."""
     if len(shapes) != len(scales) or not 1 <= len(shapes) <= 4:
         raise ValueError(f"need 1-4 levels with one scale each, got {len(shapes)} and {len(scales)}")
     dtype = grad.dtype
@@ -229,12 +240,12 @@ def multilevel_roi_align_backward_cuda(grad, boxes, shapes, scales, output_size:
     if grad.device != dev:
         raise ValueError("the cotangent and the boxes must be on one device")
     grad = grad.contiguous()
+    _check_vector_loads(c, [grad], "multilevel_roi_align backward")
     boxes = boxes.to(torch.float32).contiguous()
     levels = _levels(boxes, scales).contiguous()
     sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
-    total = sum(sizes)
-    acc = torch.empty(total, dtype=torch.float32, device=dev)
-    out = acc if dtype == torch.float32 else torch.empty(total, dtype=dtype, device=dev)
+    out = torch.empty(sum(sizes), dtype=dtype, device=dev)
+    footprints = torch.empty((b * n, 4), dtype=torch.int32, device=dev)
     offsets = [0]
     for size in sizes[:-1]:
         offsets.append(offsets[-1] + size)
@@ -246,8 +257,8 @@ def multilevel_roi_align_backward_cuda(grad, boxes, shapes, scales, output_size:
             (ctypes.c_int * num)(*[s[2] for s in shapes]),
             (ctypes.c_float * num)(*scales),
             (ctypes.c_longlong * num)(*offsets),
-            num, total, boxes.data_ptr(), levels.data_ptr(), grad.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), b * n, n, c, output_size, sampling_ratio,
+            num, boxes.data_ptr(), levels.data_ptr(), grad.data_ptr(), footprints.data_ptr(),
+            out.data_ptr(), b, n, c, output_size, sampling_ratio,
             0 if dtype == torch.float32 else 1, kernels.stream_handle(dev),
         )
     kernels.check(err, "roi_align_backward")

@@ -12,6 +12,9 @@ Runs ``mmt_psm_tpu_torch.build_model`` (configs/pap/mmt_psm_r50_fpn.yaml,
     forwards; ``unlabelled_ms`` is the kernel time outside the labels;
   * ``kernels``: the 15 device kernels with the most time per forward, and
     ``device_busy_share``: all kernel time over the profiled wall time;
+  * ``port_kernels``: always, the device time and launch count per forward
+    of every kernel built from the port's ``csrc/`` (K1's, K2's, K3's and
+    their helpers), by kernel name, on the path's own RoIs;
   * the card's name and power limit.
 With ``--train`` it runs ``mmt_psm_tpu_torch.train.build_trainer`` on
 synthetic batches instead and times ``Trainer.step``: ``step_ms`` and
@@ -20,7 +23,9 @@ synthetic batches instead and times ``Trainer.step``: ``step_ms`` and
 ``backward_ms`` each stage's share of the backward: every autograd node is
 charged to the stage of the forward op that made it (their sequence
 numbers link the two in the trace), gradient accumulation into the leaves
-to ``accumulate_grad``; ``optimizer_ms`` is clipping and the SGD step.
+to ``accumulate_grad``; ``optimizer_ms`` is clipping and the SGD step;
+``max_memory_allocated_mb`` is ``torch.cuda.max_memory_allocated()`` over
+the timed steps.
 With ``--out`` the JSON is also written to that file.
 """
 
@@ -29,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -39,6 +45,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from chip_smoke import K1_KERNELS, K2_KERNELS, K3_KERNELS  # noqa: E402
+
 # the record_function labels of MaskRCNN.forward_test, in the forward's order
 STAGES = ("backbone", "rpn_head", "rpn_select_proposals", "box_head", "relation_nms", "mask_head",
           "mask_relation_ciam")
@@ -47,6 +55,7 @@ TRAIN_STAGES = ("backbone", "rpn_head", "rpn_loss", "rpn_select_proposals", "box
                 "mask_head", "mask_relation_ciam")
 STEP_LABELS = ("backward", "optimizer_step")
 BACKWARD_NODE = "autograd::engine::evaluate_function: "
+PORT_KERNELS = K1_KERNELS + K2_KERNELS + K3_KERNELS
 
 
 def dev_us(e):
@@ -121,12 +130,20 @@ def breakdown(prof, labels, iters, wall_us):
     kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.key not in labels]
     rows = sorted(((e.key, dev_us(e), e.count) for e in kern if dev_us(e) > 0), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
+    port = {}
+    for k, us, n in rows:
+        name = next((p for p in PORT_KERNELS if re.search(rf"\b{p}\b", k)), None)
+        if name:
+            entry = port.setdefault(name, {"device_ms": 0.0, "count": 0})
+            entry["device_ms"] += us / 1e3 / iters
+            entry["count"] += n // iters
     return {
         "stages_ms": {k: stages.get(k, 0.0) for k in labels},
         "device_busy_ms": busy_us / 1e3 / iters,
         "device_busy_share": busy_us / wall_us,
         "profiled_wall_ms_per_iter": wall_us / 1e3 / iters,
         "kernels": [{"name": k[:90], "device_ms": us / 1e3 / iters, "count": n // iters} for k, us, n in rows[:15]],
+        "port_kernels": port,
     }
 
 
@@ -153,8 +170,10 @@ def main() -> int:
         batches = [batch_to_torch(generate_batch(s, args.batch, image_size=c.image_size,
                                                  max_instances=int(trainer.cfg.TPU.MAX_GT)), dev) for s in range(3)]
         step = iter(range(10**9))
+        torch.cuda.reset_peak_memory_stats(dev)
         dev_ms, host_ms, prof, wall_us = timed_and_profiled(lambda: trainer.step(batches[next(step) % 3]),
                                                             args.iters)
+        peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
         out = breakdown(prof, TRAIN_STAGES + STEP_LABELS, args.iters, wall_us)
         labelled = out["stages_ms"]
         backward = backward_by_stage(prof.events(), TRAIN_STAGES)
@@ -167,9 +186,10 @@ def main() -> int:
             "backward_ms": {k: v / 1e3 / args.iters for k, v in backward.items()},
             "backward_total_ms": sum(backward.values()) / 1e3 / args.iters,
             "optimizer_ms": labelled["optimizer_step"],
+            "max_memory_allocated_mb": peak_mb,
             "unlabelled_ms": out["device_busy_ms"] - sum(labelled[k] for k in TRAIN_STAGES)
             - labelled["optimizer_step"] - sum(backward.values()) / 1e3 / args.iters,
-            **{k: out[k] for k in ("device_busy_share", "profiled_wall_ms_per_iter", "kernels")},
+            **{k: out[k] for k in ("device_busy_share", "profiled_wall_ms_per_iter", "kernels", "port_kernels")},
         }
     else:
         from mmt_psm_tpu_torch import build_model
@@ -191,6 +211,7 @@ def main() -> int:
             "device_busy_share": out["device_busy_share"],
             "profiled_wall_ms_per_forward": out["profiled_wall_ms_per_iter"],
             "kernels": out["kernels"],
+            "port_kernels": out["port_kernels"],
         }
     text = json.dumps(result)
     if args.out:

@@ -22,6 +22,7 @@ import torch
 from mmt_psm_tpu.ops.pooler import assign_levels as jassign
 from mmt_psm_tpu.ops.pooler import multilevel_roi_align as jpool
 from mmt_psm_tpu.ops.roi_align_pallas import multilevel_roi_align_pallas
+from mmt_psm_tpu_torch.ops import kernels
 from mmt_psm_tpu_torch.ops import pooler as P
 
 torch.set_num_threads(1)
@@ -109,4 +110,30 @@ def test_bfloat16_features_keep_their_dtype():
 def test_kernel_wrapper_rejects_bad_inputs():
     feats = [torch.zeros(1, 8, 8, 4, dtype=torch.float16)] * 4
     with pytest.raises(ValueError):
+        P.multilevel_roi_align_cuda(feats, torch.zeros(1, 3, 4), SCALES, 7, 2)
+
+
+def _misaligned(shape):
+    """A contiguous float32 tensor whose base is 4 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1)[1:].view(shape)
+
+
+def _no_library(name):
+    raise AssertionError(f"the wrapper loaded kernel library {name!r} before checking its inputs")
+
+
+@pytest.mark.parametrize("case", ["channels_not_multiple_of_8", "misaligned_base"])
+def test_kernel_wrapper_rejects_what_vector_loads_cannot_take(case, monkeypatch):
+    """K2 moves 8 channels a lane with 16-byte loads: its wrapper raises
+    ValueError on C % 8 != 0 or a base that is not 16-byte aligned, before
+    any kernel library is built or loaded."""
+    monkeypatch.setattr(kernels, "library", _no_library)
+    if case == "channels_not_multiple_of_8":
+        feats = [torch.zeros(1, 32 >> i, 32 >> i, 12) for i in range(4)]
+    else:
+        feats = [torch.zeros(1, 32 >> i, 32 >> i, 8) for i in range(4)]
+        feats[2] = _misaligned((1, 8, 8, 8))
+        assert feats[2].is_contiguous() and feats[2].data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="multiple of 8" if case.startswith("channels") else "16-byte"):
         P.multilevel_roi_align_cuda(feats, torch.zeros(1, 3, 4), SCALES, 7, 2)

@@ -15,7 +15,12 @@ import torch
 
 import torch_port_util as U
 from mmt_psm_tpu.ops.roi_align_pallas import _bwd_dense, _dense_pool, _pallas_pool_bwd
-from mmt_psm_tpu_torch.ops.pooler import multilevel_roi_align, multilevel_roi_align_backward_plain
+from mmt_psm_tpu_torch.ops import kernels
+from mmt_psm_tpu_torch.ops.pooler import (
+    multilevel_roi_align,
+    multilevel_roi_align_backward_cuda,
+    multilevel_roi_align_backward_plain,
+)
 
 U.setup_torch()
 
@@ -115,3 +120,23 @@ def test_autograd_pooler_matches_jax_vjp():
     for f, w in zip(tf, want):
         U.assert_close(f.grad, w, atol=2e-4, what="feature gradient")
     assert tb.grad is None
+
+
+def _no_library(name):
+    raise AssertionError(f"the wrapper loaded kernel library {name!r} before checking its inputs")
+
+
+@pytest.mark.parametrize("case", ["channels_not_multiple_of_8", "misaligned_base"])
+def test_kernel_wrapper_rejects_what_vector_loads_cannot_take(case, monkeypatch):
+    """K3 reads the cotangent 8 channels a lane with 16-byte loads: its
+    wrapper raises ValueError on C % 8 != 0 or a cotangent whose base is not
+    16-byte aligned, before any kernel library is built or loaded."""
+    monkeypatch.setattr(kernels, "library", _no_library)
+    c = 12 if case == "channels_not_multiple_of_8" else 8
+    shapes = [(1, 32 >> i, 32 >> i, c) for i in range(4)]
+    grad = torch.zeros(1, 3, 7, 7, c)
+    if case == "misaligned_base":
+        grad = torch.zeros(grad.numel() + 1)[1:].view(grad.shape)
+        assert grad.is_contiguous() and grad.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="multiple of 8" if c == 12 else "16-byte"):
+        multilevel_roi_align_backward_cuda(grad, torch.zeros(1, 3, 4), shapes, SCALES, 7, 2)
