@@ -7,7 +7,11 @@ line is printed):
   1. require CUDA and print the card's name and power limit;
   2. build the CUDA kernels from ``mmt_psm_tpu_torch/csrc``;
   3. kernel K1 (greedy NMS) against its plain version on the card, at the
-     flagship's shapes and on adversarial cases: identical keep masks;
+     flagship's shapes and on adversarial cases (``NMS_EDGE_CASES``:
+     chains whose keeps alternate across 64-row borders, one box repeated,
+     no overlaps, thresholds 0 and 1, N = 1, 63, 64, 65, 2048, 6000 and
+     12,000): identical keep masks, and the known greedy result where the
+     case's construction gives it;
   4. kernel K2 (multi-level ROIAlign) against its plain version on the
      card at the box-head and mask-head shapes, f32 and bf16, with RoIs
      far larger than the TPU kernel's window, and at 512 channels;
@@ -85,7 +89,7 @@ K3_F32_ATOL = 1e-4
 # K3_GRAD_RTOL.
 LOSS_RTOL, GRAD_RTOL, K3_GRAD_RTOL, WG_BIAS = 1e-4, 1e-2, 1e-4, 5.0
 # the __global__ functions of csrc/*.cu that each wrapper launches
-K1_KERNELS = ("nms_mask_kernel", "nms_scan_kernel")
+K1_KERNELS = ("nms_iou_mask_kernel", "nms_block_scan_kernel")
 K2_KERNELS = ("roi_align_kernel",)
 K3_KERNELS = ("roi_footprint_kernel", "roi_align_backward_kernel")
 
@@ -157,11 +161,71 @@ def random_boxes(gen, b, n, canvas, dev):
     wh = 8 + 592 * u(b, n, 2) ** 2
     xy = u(b, n, 2) * (canvas - wh)
     boxes = torch.cat([xy, xy + wh], -1)
-    k = max(n // 10, 4)
+    k = min(max(n // 10, 4), n)
     big = torch.tensor([[-100.0, -80.0, 1200.0, 1150.0], [0.0, 500.0, 1023.0, 530.0],
                         [300.0, 0.0, 330.0, 1023.0], [-50.0, 900.0, 150.0, 1100.0]], device=dev)
     boxes[:, :k] = big.repeat(k // 4 + 1, 1)[:k]
     return boxes
+
+
+def disjoint_boxes(gen, b, n, dev):
+    """8-px boxes on a 10-px grid, shuffled: no two meet (+1 widths), so
+    greedy NMS keeps every valid box at any threshold above 0."""
+    side = math.isqrt(n - 1) + 1
+    cell = torch.stack([torch.randperm(side * side, generator=gen, device=dev)[:n] for _ in range(b)]).float()
+    xy = torch.stack([cell % side, cell.div(side, rounding_mode="floor")], -1) * 10.0
+    return torch.cat([xy, xy + 8.0], -1)
+
+
+def chain_boxes(n, start, dev):
+    """[n, 4] in score order: from row ``start`` on, box i overlaps box i+1
+    at IoU 2/3 and box i+2 at 3/7 (+1 areas); the rows before it lie apart.
+    At a threshold of 0.5 the keeps alternate from ``start``."""
+    i = torch.arange(n, dtype=torch.float32, device=dev)
+    x = torch.where(i < start, -100.0 * (i + 1), 2.0 * i)
+    return torch.stack([x, torch.zeros_like(x), x + 9.0, torch.full_like(x, 10.0)], -1)
+
+
+# K1 cases that stress the block-wise scan (name -> P, N): chains whose
+# keeps alternate, across every 64-row border in both parities; one box
+# repeated; no overlaps; thresholds 0 and 1; N around one word; large N
+NMS_EDGE_CASES = {
+    "chain_300": (1, 300), "chain_borders_2048": (3, 2048), "chain_12000": (1, 12000),
+    "identical_130": (2, 130), "disjoint_2048": (2, 2048), "thr_0": (2, 500), "thr_1": (2, 500),
+    "n_1": (3, 1), "n_63": (3, 63), "n_64": (3, 64), "n_65": (3, 65), "n_2048": (3, 2048),
+    "n_6000": (1, 6000), "n_12000": (1, 12000),
+}
+
+
+def nms_edge_case(name, gen, dev):
+    """(boxes, scores, valid, thr, keep or None) of one case of
+    ``NMS_EDGE_CASES``; ``keep`` is the greedy result where it is known
+    from the construction."""
+    p, n = NMS_EDGE_CASES[name]
+    idx = torch.arange(n, device=dev)
+    desc = (n - idx).float().expand(p, n).contiguous()  # scores in row order
+    every = torch.ones(p, n, dtype=torch.bool, device=dev)
+    if name.startswith("chain"):
+        starts = (0, 1, 61)[:p]
+        boxes = torch.stack([chain_boxes(n, s, dev) for s in starts])
+        keep = torch.stack([(idx < s) | ((idx - s) % 2 == 0) for s in starts])
+        return boxes, desc, every, 0.5, keep
+    if name == "identical_130":  # equal scores: the stable order keeps row 0 alone
+        boxes = torch.tensor([10.0, 20.0, 110.0, 220.0], device=dev).expand(p, n, 4).contiguous()
+        return boxes, torch.ones(p, n, device=dev), every, torch.tensor([0.7, 1.0], device=dev), (idx == 0).expand(p, n)
+    if name == "disjoint_2048":
+        scores = torch.rand(p, n, generator=gen, device=dev)
+        return disjoint_boxes(gen, p, n, dev), scores, every, torch.tensor([0.5, 0.01], device=dev), every
+    boxes = random_boxes(gen, p, n, CANVAS, dev)
+    scores = torch.rand(p, n, generator=gen, device=dev)
+    valid = torch.rand(p, n, generator=gen, device=dev) > 0.1
+    if name == "thr_0":  # every pair suppresses: the best valid box alone is kept
+        first = torch.where(valid, scores, -1.0).argmax(1, keepdim=True)
+        return boxes, scores, valid, 0.0, torch.zeros_like(valid).scatter(1, first, True)
+    if name == "thr_1":  # only exact repeats suppress
+        boxes[:, 1::3] = boxes[:, 0::3][:, : boxes[:, 1::3].shape[1]]
+        return boxes, scores, valid, 1.0, None
+    return boxes, scores, valid, 0.7, None
 
 
 # ------------------------------------------------------------------ K1 NMS
@@ -202,6 +266,16 @@ def check_nms(dev, stats):
         if bad:
             raise AssertionError(f"K1 {name}: {bad} keep flags differ from the plain version")
         worst = max(worst, float((got.float() - want.float()).abs().max()))
+    for name in NMS_EDGE_CASES:
+        b, s, v, t, keep = nms_edge_case(name, gen, dev)
+        got = N.nms_mask(b, s, v, t)
+        bad = int((got != N.nms_mask_plain(b, s, v, t)).sum())
+        if bad:
+            raise AssertionError(f"K1 {name}: {bad} keep flags differ from the plain version")
+        if keep is not None and not torch.equal(got, keep):
+            raise AssertionError(f"K1 {name}: keeps differ from the case's known greedy result")
+    print(f"K1 identical to the plain version on {len(cases)} path cases and {len(NMS_EDGE_CASES)} edge cases "
+          f"({', '.join(NMS_EDGE_CASES)})", flush=True)
 
     # time the kernel and its plain version on the flagship forward's two
     # calls, the RPN's and relation-NMS's, and on the train step's one call

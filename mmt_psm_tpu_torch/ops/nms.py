@@ -17,6 +17,10 @@ from . import kernels
 from .topk import top_k
 
 NEG_INF = -1e30
+# the most boxes a problem of K1 may hold: its scan stages two runs of
+# 64 x ceil(N/64) suppression words in the 227 KB of shared memory a block
+# may have (``csrc/nms.cu``)
+MAX_KERNEL_BOXES = 14144
 
 
 def suppress_plain(boxes_s: torch.Tensor, valid_s: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
@@ -32,6 +36,13 @@ def suppress_plain(boxes_s: torch.Tensor, valid_s: torch.Tensor, thr: torch.Tens
     return supp
 
 
+def kernel_scratch(p: int, n: int, device) -> torch.Tensor:
+    """K1's scratch for ``p`` problems of ``n`` boxes: the upper triangle of
+    64 x 64 suppression blocks, 64 words each, row block after row block."""
+    words = (n + 63) // 64
+    return torch.empty((p, words * (words + 1) // 2, 64), dtype=torch.int64, device=device)
+
+
 def suppress_cuda(boxes_s: torch.Tensor, valid_s: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     """Kernel K1: the same flags as ``suppress_plain``, on the card."""
     if boxes_s.dim() != 3 or boxes_s.shape[-1] != 4 or boxes_s.dtype != torch.float32:
@@ -44,10 +55,12 @@ def suppress_cuda(boxes_s: torch.Tensor, valid_s: torch.Tensor, thr: torch.Tenso
     dev = boxes_s.device
     if not (valid_s.device == dev == thr.device):
         raise ValueError("boxes, valid and thresholds must be on one device")
+    if n > MAX_KERNEL_BOXES:
+        raise ValueError(f"K1 takes at most {MAX_KERNEL_BOXES} boxes a problem, got {n}")
     boxes_s, valid_s, thr = boxes_s.contiguous(), valid_s.contiguous(), thr.contiguous()
     lib = kernels.library("nms")
-    scratch = torch.empty((p, n, (n + 63) // 64), dtype=torch.int64, device=dev)
-    supp = torch.empty((p, n), dtype=torch.uint8, device=dev)
+    scratch = kernel_scratch(p, n, dev)
+    supp = torch.empty((p, n), dtype=torch.bool, device=dev)  # the kernel writes 0 or 1
     with torch.cuda.device(dev):
         err = lib.nms_suppress(
             boxes_s.data_ptr(), valid_s.data_ptr(), thr.data_ptr(), scratch.data_ptr(),
@@ -55,7 +68,7 @@ def suppress_cuda(boxes_s: torch.Tensor, valid_s: torch.Tensor, thr: torch.Tenso
         )
     kernels.check(err, "nms_suppress")
     suppress_cuda.launches += 1
-    return supp.bool()
+    return supp
 
 
 suppress_cuda.launches = 0

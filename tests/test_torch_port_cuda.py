@@ -11,6 +11,7 @@ On a GPU host: ``python -m pytest tests/test_torch_port_cuda.py -m gpu --noconft
 import pytest
 import torch
 
+from chip_smoke import NMS_EDGE_CASES, nms_edge_case
 from mmt_psm_tpu_torch.ops import nms as N
 from mmt_psm_tpu_torch.ops import pooler as P
 
@@ -42,6 +43,20 @@ def test_nms_kernel_identical_to_plain(dev, p, n, thr):
     got = N.nms_mask(boxes, scores, valid, thr)
     assert N.suppress_cuda.launches == before + 1
     assert torch.equal(got, N.nms_mask_plain(boxes, scores, valid, thr))
+
+
+@pytest.mark.parametrize("case", list(NMS_EDGE_CASES))
+def test_nms_kernel_edge_cases(dev, case):
+    """K1 on the cases that stress its block-wise scan (chains that cross
+    64-row borders, one box repeated, no overlaps, thresholds 0 and 1, N
+    around one word, N = 6000 and 12000): keeps identical to the plain
+    version, and to the greedy result where the case's construction gives it."""
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    boxes, scores, valid, thr, keep = nms_edge_case(case, gen, dev)
+    got = N.nms_mask(boxes, scores, valid, thr)
+    assert torch.equal(got, N.nms_mask_plain(boxes, scores, valid, thr))
+    if keep is not None:
+        assert torch.equal(got, keep)
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 0.0), (torch.bfloat16, 2.0**-7)])

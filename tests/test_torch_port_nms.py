@@ -89,3 +89,53 @@ def test_kernel_wrapper_rejects_bad_inputs():
     boxes = torch.zeros(2, 10, 4, dtype=torch.float64)
     with pytest.raises(ValueError):
         N.suppress_cuda(boxes, torch.ones(2, 10, dtype=torch.bool), torch.zeros(2))
+
+
+def test_kernel_wrapper_rejects_too_many_boxes():
+    """K1's scan stages its suppression words in shared memory: past
+    ``MAX_KERNEL_BOXES`` a problem the wrapper raises before any launch."""
+    n = N.MAX_KERNEL_BOXES + 1
+    with pytest.raises(ValueError):
+        N.suppress_cuda(torch.zeros(1, n, 4), torch.ones(1, n, dtype=torch.bool), torch.zeros(1))
+    assert N.suppress_cuda.launches == 0
+
+
+def _chain(n, start):
+    """Boxes in score order where, from row ``start`` on, box i overlaps box
+    i+1 at IoU 2/3 and box i+2 at 3/7 (+1 areas); earlier rows lie apart."""
+    i = np.arange(n, dtype=np.float32)
+    x = np.where(i < start, -100.0 * (i + 1), 2.0 * i).astype(np.float32)
+    boxes = np.stack([x, np.zeros_like(x), x + 9.0, np.full_like(x, 10.0)], -1)
+    return boxes, (n - i).astype(np.float32), np.ones(n, bool)
+
+
+def _same_as_jax(boxes, scores, valid, thr):
+    got = N.nms_mask(torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(valid), thr).numpy()
+    for i in range(boxes.shape[0]):
+        args = (jnp.asarray(boxes[i]), jnp.asarray(scores[i]), jnp.asarray(valid[i]), thr)
+        np.testing.assert_array_equal(got[i], np.asarray(jnms.nms_mask(*args)))
+        np.testing.assert_array_equal(got[i], np.asarray(jnms.nms_mask_reference(*args)))
+    return got
+
+
+@pytest.mark.parametrize("n,start", [(300, 0), (300, 1), (200, 61), (130, 63), (65, 64)])
+def test_nms_chain_across_block_borders(n, start):
+    """A chain of overlaps whose keeps alternate from ``start`` at 0.5: with
+    these starts a kept row suppresses the next one across the 64- and
+    128-row borders of K1's and JAX's blocks, in both parities."""
+    boxes, scores, valid = (a[None] for a in _chain(n, start))
+    got = _same_as_jax(boxes, scores, valid, 0.5)
+    i = np.arange(n)
+    np.testing.assert_array_equal(got[0], (i < start) | ((i - start) % 2 == 0))
+
+
+@pytest.mark.parametrize("n,thr", [(300, 0.0), (65, 0.0), (300, 1.0), (129, 1.0)])
+def test_nms_threshold_edges(n, thr):
+    """Threshold 0: every pair suppresses, so the best valid box alone is
+    kept; threshold 1: only exact repeats (IoU exactly 1) suppress."""
+    boxes, scores, valid = _problems(n + int(10 * thr), 3, n, ties=False)
+    boxes[:, 1::3] = boxes[:, 0::3][:, : boxes[:, 1::3].shape[1]]
+    got = _same_as_jax(boxes, scores, valid, thr)
+    if thr == 0.0:
+        assert got[1:].sum(1).tolist() == [1, 1]
+        assert not got[0].any()
