@@ -39,16 +39,34 @@ line is printed):
      plain versions of all three and with K3's alone, TF32 off (the
      relation head's geometric gate kept off its pole, as in
      tests/test_torch_port_train_step.py): losses and every gradient agree;
-  9. a ``{"kernels": [...]}`` line with each kernel's time over its calls
+  9. the mean-teacher train step (``build_mt_trainer``, same config at its
+     full width: batch 4 labeled + 4 unlabeled of AUG_K = 2 teacher views
+     and their flips and AUG_S = 1 student view, box-head dropout 0.5, 512
+     RoIs an image) from iteration START_MT + 1: 2 warm-up steps (the last
+     one's kernel calls recorded, then each held against its plain version
+     on the same inputs), one step with synchronising calls made
+     errors, then 5 timed steps, in which K1 launches 4 times a step, K2 6
+     times (the teacher's PSM box head pools 16 view images x 512 RoIs in
+     one launch) and K3 3 times; PSM, MGD and the total finite, the ramp
+     weight above 0, the teacher moved by the EMA and not the student, the
+     student's frozen tensors bit-unchanged, the hint adaptor moved; peak
+     memory;
+ 10. one f32 MT step at batch 2 with the kernels, against the same step with
+     the plain versions of all three and with K3's alone, at the ramp's
+     plateau (START_MT + RAMPUP_STEP, where the MT losses count in full):
+     losses, every gradient and the teacher's EMA move agree;
+ 11. a ``{"kernels": [...]}`` line with each kernel's time over its calls
      of one flagship forward (K1: the RPN's and relation-NMS's; K2: the box
      head's and the mask head's) or of one train step (K3: the box head's
      and the mask head's), its plain version's time and its bound on this
-     card, the K1 and K2 numbers of the train step under ``*_train`` keys,
-     after lines with each call's own times. A kernel's time is the device
-     time of the kernels its wrapper launches (torch.profiler), without the
-     host's time to launch them; a plain version's is CUDA events around it;
- 10. the throughput in patches/s and images/s beside the card's name and
-     power limit.
+     card, the K1 and K2 numbers of the train step under ``*_train`` keys
+     and every kernel's over the MT step's recorded calls under ``*_mt``
+     keys (plain times too), after lines with each call's own times. A
+     kernel's time is the device time of the kernels its wrapper launches
+     (torch.profiler), without the host's time to launch them; a plain
+     version's is CUDA events around it;
+ 12. the throughput in patches/s and images/s (supervised and MT) beside
+     the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -137,8 +155,15 @@ def device_ms(fn, iters=20, warmup=3):
 
 
 def kernel_ms(fn, kernels):
-    """Device ms per call of the named kernels of ``csrc/`` that ``fn`` launches."""
-    times = device_ms(fn)
+    """Device ms per call of the named kernels of ``csrc/`` that ``fn`` launches.
+    A trace that holds no device event at all (the profiler's activity
+    buffers came back empty: seen once on an H100, on a call that the
+    same process had traced right before) is taken again, at most twice;
+    one that holds other kernels but none of these fails."""
+    for _ in range(3):
+        times = device_ms(fn)
+        if times:
+            break
     ms = sum(v for k, v in times.items() if any(re.search(rf"\b{n}\b", k) for n in kernels))
     if ms <= 0:
         raise AssertionError(f"none of {kernels} ran on the device: {sorted(times)}")
@@ -437,16 +462,16 @@ def edge_boxes(dev):
     return torch.cat([border, other])
 
 
-def k3_against_plain(g, boxes, shapes, scales, p, what):
+def k3_against_plain(g, boxes, shapes, scales, p, sampling, what):
     """K3 launched twice (bit-identical) and held to its plain version;
-    returns the largest f32 difference."""
+    returns the largest difference."""
     from mmt_psm_tpu_torch.ops import pooler as Pm
 
-    got = Pm.multilevel_roi_align_backward_cuda(g, boxes, shapes, scales, p, 2)
-    again = Pm.multilevel_roi_align_backward_cuda(g, boxes, shapes, scales, p, 2)
+    got = Pm.multilevel_roi_align_backward_cuda(g, boxes, shapes, scales, p, sampling)
+    again = Pm.multilevel_roi_align_backward_cuda(g, boxes, shapes, scales, p, sampling)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"K3 {what} {g.dtype}: two launches on the same inputs differ")
-    want = Pm.multilevel_roi_align_backward_plain(g, boxes, shapes, scales, p, 2)
+    want = Pm.multilevel_roi_align_backward_plain(g, boxes, shapes, scales, p, sampling)
     used = set(Pm._levels(boxes, scales).flatten().tolist())
     worst = 0.0
     for lv, (a, b) in enumerate(zip(got, want)):
@@ -461,8 +486,7 @@ def k3_against_plain(g, boxes, shapes, scales, p, what):
         ok = err <= K3_F32_ATOL if g.dtype == torch.float32 else err <= BF16_RTOL * ref
         if not ok:
             raise AssertionError(f"K3 {what} {g.dtype} level {lv}: max err {err} (max |ref| {ref})")
-        if g.dtype == torch.float32:
-            worst = max(worst, err)
+        worst = max(worst, err)
     return worst
 
 
@@ -477,15 +501,15 @@ def check_roi_align_backward(dev, stats):
                               ("zero cotangent", edges, True)):
         g = torch.randn(BATCH, boxes.shape[1], 7, 7, 256, generator=gen, device=dev) * (0.0 if zero else 1.0)
         for gd in (g, g.to(torch.bfloat16)):
-            k3_against_plain(gd, boxes, shapes, scales, 7, what)
+            k3_against_plain(gd, boxes, shapes, scales, 7, 2, what)
     worst, per_call, nbytes, ops = 0.0, {}, 0, 0.0
     # the train step's two calls: 512 sampled RoIs per image at P = 7, 128 mask RoIs at P = 14
     for name, n, p in (("box_head", 512, 7), ("mask_head", 128, 14)):
         boxes = torch.cat([random_boxes(gen, BATCH, n // 2, CANVAS, dev), cluster_boxes(gen, BATCH, n - n // 2, dev)], 1)
         g32 = torch.randn(BATCH, n, p, p, 256, generator=gen, device=dev)
         g16 = g32.to(torch.bfloat16)
-        worst = max(worst, k3_against_plain(g32, boxes, shapes, scales, p, name))
-        k3_against_plain(g16, boxes, shapes, scales, p, name)
+        worst = max(worst, k3_against_plain(g32, boxes, shapes, scales, p, 2, name))
+        k3_against_plain(g16, boxes, shapes, scales, p, 2, name)
         per_call[name] = (kernel_ms(lambda: Pm.multilevel_roi_align_backward_cuda(g16, boxes, shapes, scales, p, 2),
                                     K3_KERNELS),
                           cuda_ms(lambda: Pm.multilevel_roi_align_backward_plain(g16, boxes, shapes, scales, p, 2),
@@ -642,7 +666,9 @@ def train_path(dev, stats):
     if changed:
         raise AssertionError(f"frozen tensors changed: {changed[:5]}")
     params = dict(model.named_parameters())
-    still = [n for n, p0 in trainable.items() if torch.equal(params[n].detach(), p0)]
+    # the MGD hint adaptor's biases get no gradient in a supervised step and no decay
+    still = [n for n, p0 in trainable.items() if torch.equal(params[n].detach(), p0)
+             and not (n.startswith("hint_adaptor.") and n.endswith(".bias"))]
     # a weight decays even where its gradient is 0; a bias moves where its gradient is not
     if [n for n in still if not n.endswith(".bias")] or len(still) > len(trainable) // 20:
         raise AssertionError(f"trainable tensors that did not move: {still}")
@@ -653,10 +679,26 @@ def train_path(dev, stats):
     return TRAIN_STEPS * BATCH / wall
 
 
+def norm_diffs(got, want, rtol, what):
+    """Hold each tensor by ||g - w|| <= rtol ||w|| + 1e-6 (the 1e-6 for
+    gradients that are 0 but for rounding: WK's bias, whose shift a softmax
+    ignores); returns the three worst |diff|/|w| and max|diff|/max|w|."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: the kernels and the plain versions give other tensors")
+    diff = {n: float(torch.linalg.vector_norm(got[n] - w)) for n, w in want.items()}
+    norm = {n: float(torch.linalg.vector_norm(w)) for n, w in want.items()}
+    over = {n: (diff[n], norm[n]) for n in diff if not diff[n] <= rtol * norm[n] + 1e-6}
+    if over:
+        raise AssertionError(f"{what} differ beyond {rtol} of their norm: {over}")
+    l2 = {n: diff[n] / max(norm[n], 1e-30) for n in diff}
+    peak = {n: float((got[n] - w).abs().max() / w.abs().max().clamp(min=1e-30)) for n, w in want.items()}
+    worst = lambda d: sorted(((v, n) for n, v in d.items()), reverse=True)[:3]  # noqa: E731
+    return f"{len(l2)} {what} within {rtol} of their norm + 1e-6; worst |diff|/|w| {worst(l2)}, " \
+           f"worst max|diff|/max|w| {worst(peak)}"
+
+
 def train_f32_vs_plain(dev):
     from mmt_psm_tpu_torch.data.synthetic import batch_to_torch, generate_batch
-    from mmt_psm_tpu_torch.ops import nms as N
-    from mmt_psm_tpu_torch.ops import pooler as Pm
     from mmt_psm_tpu_torch.train import build_trainer
 
     torch.backends.cudnn.allow_tf32 = False
@@ -667,10 +709,7 @@ def train_f32_vs_plain(dev):
         trainer = build_trainer(device=dev, seed=0, opts=["TPU.COMPUTE_DTYPE", "float32"])
         with torch.no_grad():  # keep the relation head's geometric gate off its pole (see GRAD_RTOL)
             trainer.model.relation_nms.relation_module.WG.bias.fill_(WG_BIAS)
-        plain = {"nms": (N, "suppress_cuda", N.suppress_plain),
-                 "roi_align": (Pm, "multilevel_roi_align_cuda", Pm.multilevel_roi_align_plain),
-                 "roi_align_backward": (Pm, "multilevel_roi_align_backward_cuda",
-                                        Pm.multilevel_roi_align_backward_plain)}
+        plain = kernel_wrappers()
         with contextlib.ExitStack() as stack:
             for name in swap:  # the wrappers' kernel calls swapped for the plain versions
                 stack.enter_context(mock.patch.object(*plain[name]))
@@ -685,23 +724,238 @@ def train_f32_vs_plain(dev):
         bad = {k: (got_l[k], want_l[k]) for k in want_l if not abs(got_l[k] - want_l[k]) <= LOSS_RTOL * abs(want_l[k])}
         if bad:
             raise AssertionError(f"f32 train step, {swap} plain: losses differ beyond {LOSS_RTOL} relative: {bad}")
-        if set(got_g) != set(want_g):
-            raise AssertionError("f32 train step: the kernels and the plain versions differentiate other tensors")
-        diff = {n: float(torch.linalg.vector_norm(got_g[n] - w)) for n, w in want_g.items()}
-        norm = {n: float(torch.linalg.vector_norm(w)) for n, w in want_g.items()}
-        l2 = {n: diff[n] / max(norm[n], 1e-30) for n in diff}
-        peak = {n: float((got_g[n] - w).abs().max() / w.abs().max().clamp(min=1e-30)) for n, w in want_g.items()}
-        # 1e-6 absolute for gradients that are 0 but for rounding (WK's bias: a softmax ignores a shift)
-        over = {n: (diff[n], norm[n]) for n in diff if not diff[n] <= rtol * norm[n] + 1e-6}
-        if over:
-            raise AssertionError(f"f32 train step, {swap} plain: gradients differ beyond {rtol} of their norm: {over}")
-        worst = lambda d: sorted(((v, n) for n, v in d.items()), reverse=True)[:3]  # noqa: E731
         lines.append(f"{'+'.join(swap)} plain: losses within {LOSS_RTOL} relative (max "
-                     f"{max(abs(got_l[k] - want_l[k]) / abs(want_l[k]) for k in want_l):.3g}), {len(l2)} gradients "
-                     f"within {rtol} of their norm + 1e-6; worst |diff|/|grad| {worst(l2)}, worst max|diff|/max|grad| "
-                     f"{worst(peak)}")
+                     f"{max(abs(got_l[k] - want_l[k]) / abs(want_l[k]) for k in want_l):.3g}), "
+                     + norm_diffs(got_g, want_g, rtol, f"gradients ({'+'.join(swap)} plain)"))
     torch.backends.cudnn.allow_tf32 = True
     print("train f32 kernels vs " + "; ".join(lines), flush=True)
+
+
+# ------------------------------------------------------ mean-teacher path
+MT_WARMUP, MT_STEPS = 2, 5
+# per MT step: K1 for the supervised RPN, the teacher's RPN, its relation-NMS
+# and its train-mode proposals against the pseudo gt; K2 for the supervised
+# box and mask heads, the teacher's box and mask heads, the teacher's PSM box
+# head over the 2K stacked views (16 images x 512 RoIs) and the student's PSM
+# box head; K3 for the supervised box and mask heads and the student's PSM box head
+MT_LAUNCHES = {"nms": 4, "roi_align": 6, "roi_align_backward": 3}
+
+
+def kernel_wrappers():
+    """stats key -> (module, name of the wrapper's kernel call, the kernel's
+    plain version)."""
+    from mmt_psm_tpu_torch.ops import nms as N
+    from mmt_psm_tpu_torch.ops import pooler as Pm
+
+    return {"nms": (N, "suppress_cuda", N.suppress_plain),
+            "roi_align": (Pm, "multilevel_roi_align_cuda", Pm.multilevel_roi_align_plain),
+            "roi_align_backward": (Pm, "multilevel_roi_align_backward_cuda", Pm.multilevel_roi_align_backward_plain)}
+
+
+@contextlib.contextmanager
+def recording(calls):
+    """Append (stats key, arguments) of every kernel call the wrappers make;
+    the kernels still launch."""
+    with contextlib.ExitStack() as stack:
+        for key, (mod, attr, _) in kernel_wrappers().items():
+            def rec(*a, _fn=getattr(mod, attr), _key=key):
+                calls.append((_key, a))
+                return _fn(*a)
+            # a wrapper counts its launches on the name it is bound to: here the recorder
+            rec.launches = 0
+            stack.enter_context(mock.patch.object(mod, attr, rec))
+        yield
+
+
+@torch.no_grad()
+def time_calls(calls):
+    """Per kernel: each recorded call held against its plain version on the
+    same inputs (the tolerances of the phases above: K1's flags equal, K2
+    ATOL + rtol |want|, K3 as ``k3_against_plain``), then the device ms of
+    the recorded calls and CUDA-event ms of their plain versions, summed,
+    the worst error, and the bound of them all (the same byte and operation
+    counts as the phases above)."""
+    from mmt_psm_tpu_torch.ops import nms as N
+    from mmt_psm_tpu_torch.ops import pooler as Pm
+
+    wrappers = kernel_wrappers()
+    out, per_call = {}, []
+    for key, a in calls:
+        if key == "nms":
+            bs, vs, th = a
+            n = bs.shape[1]
+            shape = f"{bs.shape[0]} x {n}"
+            supp = N.suppress_cuda(bs, vs, th)
+            bad = int((supp != N.suppress_plain(bs, vs, th)).sum())
+            if bad:
+                raise AssertionError(f"K1 MT call {shape}: {bad} flags differ from the plain version")
+            err = 0.0
+            kept = (~supp & vs).float()
+            ms = kernel_ms(lambda: N.suppress_cuda(*a), K1_KERNELS)
+            ops = 14.0 * float((kept * (n - 1 - torch.arange(n, device=bs.device))).sum())
+            nbytes = bs.numel() * 4 + 2 * vs.numel() + th.numel() * 4
+        elif key == "roi_align":
+            feats, boxes, scales, p, g = a
+            shape = f"{boxes.shape[0]} x {boxes.shape[1]} P{p}"
+            want = Pm.multilevel_roi_align_plain(*a).float()
+            e = (Pm.multilevel_roi_align_cuda(*a).float() - want).abs()
+            rtol = BF16_RTOL if feats[0].dtype == torch.bfloat16 else 0.0
+            err = float(e.max())
+            if not float((e - ATOL - rtol * want.abs()).max()) <= 0:
+                raise AssertionError(f"K2 MT call {shape} {feats[0].dtype}: max err {err}")
+            del want, e
+            ms = kernel_ms(lambda: Pm.multilevel_roi_align_cuda(*a), K2_KERNELS)
+            c, es = feats[0].shape[-1], feats[0].element_size()
+            out_elems = boxes.shape[0] * boxes.shape[1] * p * p * c
+            nbytes = sampled_cells(feats, boxes, scales, p, g) * c * es + boxes.numel() * 5 + out_elems * es
+            ops = out_elems * g * g * (4 * 2 + 2)
+        else:
+            grad, boxes, shapes, scales, p, g = a
+            shape = f"{boxes.shape[0]} x {boxes.shape[1]} P{p}"
+            err = k3_against_plain(grad, boxes, shapes, scales, p, g, f"MT call {shape}")
+            ms = kernel_ms(lambda: Pm.multilevel_roi_align_backward_cuda(*a), K3_KERNELS)
+            es = grad.element_size()
+            nbytes = grad.numel() * es + boxes.numel() * 5 + sum(math.prod(sh) for sh in shapes) * es
+            ops = grad.numel() * g * g * (4 * 2)
+        plain_ms = cuda_ms(lambda: wrappers[key][2](*a), iters=3, warmup=1)
+        acc = out.setdefault(key, [0.0, 0.0, 0, 0.0, 0.0])
+        acc[0], acc[1], acc[2], acc[3] = acc[0] + ms, acc[1] + plain_ms, acc[2] + nbytes, acc[3] + ops
+        acc[4] = max(acc[4], err)
+        per_call.append((key, shape, round(ms, 4), round(plain_ms, 3), err))
+    return {k: (v[0], v[1], bound(v[2], v[3]), v[4]) for k, v in out.items()}, per_call
+
+
+def mt_path(dev, stats):
+    from mmt_psm_tpu_torch.data.synthetic import (batch_to_torch, generate_batch, generate_unlabeled_batch,
+                                                  unlabeled_to_torch)
+    from mmt_psm_tpu_torch.train import build_mt_trainer
+
+    trainer = build_mt_trainer(device=dev, seed=0)
+    model, teacher, mt, c = trainer.model, trainer.teacher, trainer.mt, trainer.model.config
+    width = (c.image_size, mt.aug_k, mt.aug_s, c.box_head_dropout, c.box_batch_per_image, c.with_hint_adaptor)
+    if width != (CANVAS, 2, 1, 0.5, 512, True):
+        raise AssertionError(f"not the flagship's width: {width}")
+    max_gt = int(trainer.cfg.TPU.MAX_GT)
+    labeled = [batch_to_torch(generate_batch(s, BATCH, image_size=CANVAS, max_instances=max_gt), dev) for s in range(2)]
+    unlabeled = [unlabeled_to_torch(generate_unlabeled_batch(10 + s, BATCH, image_size=CANVAS, aug_k=mt.aug_k,
+                                                             aug_s=mt.aug_s, max_instances=max_gt), dev)
+                 for s in range(2)]
+    frozen = {n: model.state_dict()[n].clone() for n in frozen_names(model)}
+    adaptor = {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith("hint_adaptor.")}
+    teacher0 = {k: v.clone() for k, v in teacher.state_dict().items()}
+    trainer.iteration = mt.start_mt + 1
+    calls = []
+    for i in range(MT_WARMUP):
+        # the last warm-up step's kernel calls are the ones timed below
+        with recording(calls) if i == MT_WARMUP - 1 else contextlib.nullcontext():
+            trainer.step(labeled[i % 2], unlabeled[i % 2])
+    torch.cuda.synchronize()
+    found = {k: sum(key == k for key, _ in calls) for k in MT_LAUNCHES}
+    if found != MT_LAUNCHES:
+        raise AssertionError(f"kernel calls in one MT step: {found}, expected {MT_LAUNCHES}")
+    timed, per_call = time_calls(calls)
+    del calls
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.step(labeled[0], unlabeled[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    counters = {k: getattr(mod, attr) for k, (mod, attr, _) in kernel_wrappers().items()}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    outs = [trainer.step(labeled[i % 2], unlabeled[i % 2]) for i in range(MT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = {k: fn.launches for k, fn in counters.items()}
+    expected = {k: v * MT_STEPS for k, v in MT_LAUNCHES.items()}
+    if launches != expected:
+        raise AssertionError(f"kernel launches in {MT_STEPS} MT steps: {launches}, expected {expected}")
+    for k, (ms, plain_ms, b, err) in timed.items():
+        stats[k].update(ms_mt=ms, plain_ms_mt=plain_ms, bound_ms_mt=b["bound_ms"], bound_by_mt=b["bound_by"],
+                        launches_mt=launches[k], max_abs_err_mt=err)
+
+    losses = {k: [float(o[k]) for o in outs] for k in outs[0]}
+    for k in ("mt_classifier", "mt_fg_loss", "loss_total") + tuple(losses):
+        if k not in losses or not all(math.isfinite(x) for x in losses[k]):
+            raise AssertionError(f"missing or non-finite {k}: {losses.get(k)}")
+    if not all(w > 0 for w in losses["mt_weight"]):
+        raise AssertionError(f"mt_weight {losses['mt_weight']}")
+    sd, t_sd = model.state_dict(), teacher.state_dict()
+    changed = [n for n in frozen if not torch.equal(sd[n], frozen[n])]
+    if changed:
+        raise AssertionError(f"frozen tensors of the student changed: {changed[:5]}")
+    params = dict(model.named_parameters())
+    t_still = [n for n in params if params[n].requires_grad and torch.equal(t_sd[n], teacher0[n])]
+    if t_still:
+        raise AssertionError(f"teacher tensors the EMA did not move: {t_still[:5]}")
+    if all(torch.equal(t_sd[k], sd[k]) for k in t_sd):
+        raise AssertionError("the teacher equals the student")
+    a_still = [n for n, p0 in adaptor.items() if torch.equal(params[n].detach(), p0)]
+    if a_still:
+        raise AssertionError(f"hint adaptor tensors that did not move: {a_still}")
+    print(f"mt bf16: {MT_STEPS} MT steps of {BATCH} labeled + {BATCH} unlabeled ({mt.aug_k} teacher views and "
+          f"their flips, {mt.aug_s} student view) at {CANVAS}px from iteration {mt.start_mt + 1}, after "
+          f"{MT_WARMUP + 1} warm-up; losses of the last step {json.dumps({k: v[-1] for k, v in losses.items()})}; "
+          f"launches {launches}; teacher moved and differs from the student, {len(frozen)} frozen bit-unchanged, "
+          f"{len(adaptor)} hint adaptor tensors moved; peak memory {peak_gib:.3f} GiB", flush=True)
+    print("MT step's kernel calls, each held against its plain version (kernel, shape, kernel ms, plain ms, "
+          "max abs err): " + json.dumps(per_call), flush=True)
+    return MT_STEPS * BATCH / wall, peak_gib
+
+
+def mt_f32_vs_plain(dev):
+    from mmt_psm_tpu_torch.data.synthetic import (batch_to_torch, generate_batch, generate_unlabeled_batch,
+                                                  unlabeled_to_torch)
+    from mmt_psm_tpu_torch.train import build_mt_trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lab = batch_to_torch(generate_batch(7, 2, image_size=CANVAS, max_instances=64), dev)
+    unl = unlabeled_to_torch(generate_unlabeled_batch(17, 2, image_size=CANVAS, max_instances=64), dev)
+    plain = kernel_wrappers()
+
+    def step(swap):
+        trainer = build_mt_trainer(device=dev, seed=0, opts=["TPU.COMPUTE_DTYPE", "float32"])
+        with torch.no_grad():  # the relation head's geometric gate off its pole (see GRAD_RTOL)
+            for m in (trainer.model, trainer.teacher):
+                m.relation_nms.relation_module.WG.bias.fill_(WG_BIAS)
+        # the ramp's plateau, where the MT losses count LAMBDA times their
+        # weights: just past START_MT they count ~0.035 of that, and the
+        # supervised part would swamp the MT branch's gradients (the student
+        # PSM's K3 call among them)
+        trainer.iteration = trainer.mt.start_mt + trainer.mt.rampup_step
+        t0 = {k: v.clone() for k, v in trainer.teacher.state_dict().items()}
+        with contextlib.ExitStack() as stack:
+            for name in swap:  # the wrappers' kernel calls swapped for the plain versions
+                stack.enter_context(mock.patch.object(*plain[name]))
+            losses = trainer.step(lab, unl)
+        if float(losses["mt_weight"]) != trainer.mt.lambda_:
+            raise AssertionError(f"f32 MT step: mt_weight {float(losses['mt_weight'])}, not LAMBDA")
+        grads = {n: p.grad for n, p in trainer.model.named_parameters() if p.grad is not None}
+        # the EMA's move: (1 - alpha) times the student's
+        moved = {k: v - t0[k] for k, v in trainer.teacher.state_dict().items()}
+        return {k: float(v) for k, v in losses.items()}, grads, moved
+
+    got_l, got_g, got_t = step(())
+    if not {"mt_classifier", "mt_fg_loss"} <= set(got_l):
+        raise AssertionError(f"f32 MT step: no MT losses in {sorted(got_l)}")
+    lines = []
+    for swap, rtol in ((("nms", "roi_align", "roi_align_backward"), GRAD_RTOL), (("roi_align_backward",), K3_GRAD_RTOL)):
+        want_l, want_g, want_t = step(swap)
+        bad = {k: (got_l[k], want_l[k]) for k in want_l if not abs(got_l[k] - want_l[k]) <= LOSS_RTOL * abs(want_l[k])}
+        if bad:
+            raise AssertionError(f"f32 MT step, {swap} plain: losses differ beyond {LOSS_RTOL} relative: {bad}")
+        lines.append(f"{'+'.join(swap)} plain: losses within {LOSS_RTOL} relative (max "
+                     f"{max(abs(got_l[k] - want_l[k]) / abs(want_l[k]) for k in want_l):.3g}), "
+                     + norm_diffs(got_g, want_g, rtol, f"MT gradients ({'+'.join(swap)} plain)") + "; "
+                     + norm_diffs(got_t, want_t, rtol, f"teacher EMA moves ({'+'.join(swap)} plain)"))
+    torch.backends.cudnn.allow_tf32 = True
+    print("mt f32 kernels vs " + "; ".join(lines), flush=True)
 
 
 def main() -> int:
@@ -722,9 +976,13 @@ def main() -> int:
     phase("flagship f32 vs plain", lambda: flagship_f32_vs_plain(dev))
     images_per_s = phase("train bf16", lambda: train_path(dev, stats))
     phase("train f32 vs plain", lambda: train_f32_vs_plain(dev))
+    mt_images_per_s, mt_peak_gib = phase("mt bf16", lambda: mt_path(dev, stats))
+    phase("mt f32 vs plain", lambda: mt_f32_vs_plain(dev))
     print(f"throughput: {patches_per_s:.3f} patches/s at {CANVAS}px, batch {BATCH}, bf16 on {card}", flush=True)
     print(f"train throughput: {images_per_s:.3f} images/s at {CANVAS}px, batch {BATCH}, bf16 on {card}",
           flush=True)
+    print(f"mt throughput: {mt_images_per_s:.3f} labeled images/s ({BATCH} labeled + {BATCH} unlabeled a step), "
+          f"peak memory {mt_peak_gib:.3f} GiB at {CANVAS}px, bf16 on {card}", flush=True)
     print(json.dumps({"kernels": [stats["nms"], stats["roi_align"], stats["roi_align_backward"]]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
-"""Default configuration tree for the inference and supervised training paths.
+"""Default configuration tree for the inference, supervised and mean-teacher
+training paths.
 
 The keys of the JAX package's ``config/defaults.py`` (which mirrors the
 reference's yacs key space, maskrcnn_benchmark/config/defaults.py) that
-the port's ``ModelConfig.from_cfg`` and its optimizer read, with the same
-defaults, so ``configs/pap/*.yaml`` merges unchanged. Other keys in a YAML
-(MT, DATASETS, ...) merge in as plain values.
+the port's ``ModelConfig.from_cfg``, its optimizer and ``MTConfig.from_cfg``
+read, with the same defaults, so ``configs/pap/*.yaml`` merges unchanged;
+the whole MT block is copied, so a YAML that is silent on a key (ODKD,
+FFI, PLTRAIN, ...) gets the JAX default. Other keys in a YAML (DATASETS,
+...) merge in as plain values.
 """
 
 from .node import ConfigNode
@@ -77,6 +80,7 @@ def get_cfg() -> ConfigNode:
     C.MODEL.RELATION_NMS.POS_NMS = -1.0
     C.MODEL.RELATION_NMS.TOPK = 90
     C.MODEL.RELATION_NMS.REG_IOU = False
+    C.MODEL.RELATION_NMS.LOSS = 1.0
 
     C.MODEL.RELATION_MASK = ConfigNode()
     C.MODEL.RELATION_MASK.PRE_NORM = False
@@ -88,7 +92,56 @@ def get_cfg() -> ConfigNode:
     C.MODEL.RELATION_MASK.EXTRACTOR_CHANNEL = 1
     C.MODEL.RELATION_MASK.FEATURE_EXTRACTOR = "RoiAlignMaskFeatureExtractor"
 
+    C.MT = ConfigNode()
+    C.MT.ALPHA_RAMPUP = 0.99
+    C.MT.ALPHA = 0.999
+    C.MT.LAMBDA = 1.0
+    C.MT.RAMPUP_STEP = 5000
+    C.MT.RAMPDOWN_STEP = 2000
+    C.MT.SEG_LOSS = 1.0
+    C.MT.NMS_LOSS = 1.0
+    C.MT.OBJ_LOSS = 1.0
+    C.MT.RPN_REG_LOSS = 1.0
+    C.MT.CLS_LOSS = 1.0
+    C.MT.BOX_REG_LOSS = 1.0
+    C.MT.NMS_LOSS_TYPE = "weighted_bce"
+    C.MT.CLS_LOSS_TYPE = "bce"
+    C.MT.REG_LOSS_TYPE = "smooth_l1"
+    C.MT.SEG_LOSS_TYPE = "bce"
+    C.MT.RPN_BOOST_ALPHA = 0.5
+    C.MT.TEMP = 0.5
+    C.MT.HINT = 0.0
+    C.MT.FLIP = False
+    C.MT.START = 5000
+    C.MT.CONSIST_ONLY_NO_LABEL = False
+    C.MT.ADV = False
+    C.MT.G_LOSS = 1.0
+    C.MT.CONFIDENCE = 0.0
+    C.MT.CONF_PAIR = False
+    C.MT.SHARPEN = False
+    C.MT.CONSIST_TEACHER = False
+    C.MT.RANK_FILTER = 0.0
+    C.MT.IG_LOSS = 0.0
+    C.MT.MEAN_TARGET = True
+    C.MT.CLS_NEG = True
+    C.MT.AUG = False
+    C.MT.ANNEAL = 0.0
+    C.MT.TSG_LOSS = 0.0
+    C.MT.SAME_DIR = False
+    C.MT.HARD_NEG = False
+    C.MT.START_MT = 1000
+    C.MT.FG_HINT = 0.0
+    C.MT.T_ADAPT = False
+    C.MT.CLS_BALANCE_WEIGHT = 1.0
+    C.MT.AUG_K = 2
+    C.MT.AUG_S = 1
+    C.MT.N_STEP_UNLABEL = 1
+    C.MT.ODKD = False
+    C.MT.FFI = False
+    C.MT.PLTRAIN = False
+
     C.SOLVER = ConfigNode()
+    C.SOLVER.MAX_ITER = 40000
     C.SOLVER.BASE_LR = 0.001
     C.SOLVER.BIAS_LR_FACTOR = 2
     C.SOLVER.MOMENTUM = 0.9

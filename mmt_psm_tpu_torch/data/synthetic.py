@@ -6,6 +6,9 @@ class 2 = nucleus (small, dark, inside its cytoplasm), the 2-foreground-
 class structure of the Pap dataset, with boxes, labels and full-image
 masks, made from a seed in numpy. Outputs are fixed-shape padded arrays;
 ``batch_to_torch`` moves a batch to a device as the train step takes it.
+``generate_unlabeled_batch`` makes the mean teacher's K-aug unlabeled batch
+the JAX package's bench and tests use (``bench_train.py:73-84``): each view
+is the normalized image plus its own N(0, 4) noise.
 """
 
 from __future__ import annotations
@@ -139,3 +142,26 @@ def batch_to_torch(batch, device) -> dict:
     out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
     out["image"] = torch.from_numpy(normalize_image(batch["image"]))
     return {k: v.to(device) for k, v in out.items()}
+
+
+# the view noise's seed in the unlabeled recipe (bench_train.py:75)
+UNLABELED_NOISE_SEED = 3
+
+
+def generate_unlabeled_batch(seed: int, batch_size: int, image_size: int = 256, aug_k: int = 2, aug_s: int = 1,
+                             max_instances: int = 64):
+    """An unlabeled batch of ``batch_size`` synthetic images: ``t_images``
+    f32 [B, K, H, W, 3] (the teacher's K views) and ``s_images`` f32
+    [B, S, H, W, 3] (the student's), each view the normalized image plus
+    N(0, 4) noise from a generator seeded with ``UNLABELED_NOISE_SEED``, and
+    ``image_size`` [B, 2]."""
+    b = generate_batch(seed, batch_size, image_size=image_size, max_instances=max_instances)
+    base = normalize_image(b["image"])
+    rng = np.random.default_rng(UNLABELED_NOISE_SEED)
+    views = lambda n: np.stack([base + rng.normal(0, 4, base.shape) for _ in range(n)], 1).astype(np.float32)  # noqa: E731
+    return {"t_images": views(aug_k), "s_images": views(aug_s), "image_size": b["image_size"]}
+
+
+def unlabeled_to_torch(batch, device) -> dict:
+    """A ``generate_unlabeled_batch`` dict -> tensors on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}

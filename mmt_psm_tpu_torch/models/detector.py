@@ -2,12 +2,14 @@
 
 Port of ``mmt_psm_tpu/models/detector.py`` (``ModelConfig``,
 ``MaskRCNN.forward_test``, ``detections_from_features`` and
-``forward_train``): backbone -> RPN -> box head -> relation-NMS -> mask
-head -> mask relation, all on padded fixed shapes with no host sync; at
-test time per-label mask probabilities, in training the loss dict.
+``forward_train``, and the mean teacher's sub-forwards and ``HintAdaptor``):
+backbone -> RPN -> box head -> relation-NMS -> mask head -> mask relation,
+all on padded fixed shapes with no host sync; at test time per-label mask
+probabilities, in training the loss dict.
 Submodules carry maskrcnn-benchmark's names (``backbone.body``,
 ``rpn.head``, ``roi_heads.box``, ``roi_heads.mask``, ``relation_nms``),
-so ``state_dict`` keys match the reference checkpoint.
+so ``state_dict`` keys match the reference checkpoint; a train-mode model
+of a config with MT.FG_HINT > 0 adds the MGD ``hint_adaptor``.
 
 ``build_model`` is the entry point: the flagship config, seeded random
 weights, eval mode, on the card unless the caller asks for the CPU.
@@ -30,6 +32,7 @@ from ..structures.detections import Detections, GroundTruth
 from .anchors import fpn_anchors
 from .backbone import ResNetFPNBackbone
 from .box_head import BoxHead, box_head_loss, subsample_proposals
+from .layers import Conv2d, variance_scaling_
 from .mask_head import (MaskRCNNC4Predictor, MaskRCNNFPNExtractor, crop_masks_to_boxes, kaiming_init,
                         mask_head_loss, select_mask_probs, select_positive_rois)
 from .mask_relation import MaskRelationConfig, MaskRelationRefineNet
@@ -44,8 +47,8 @@ FLAGSHIP_CONFIG = os.path.join(
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The static hyperparameters of the test-time and supervised training
-    graphs (the subset of the JAX ``ModelConfig`` they read, same names)."""
+    """The static hyperparameters of the test-time and training graphs (the
+    subset of the JAX ``ModelConfig`` they read, same names)."""
 
     image_size: int = 1024
     num_classes: int = 3
@@ -83,12 +86,18 @@ class ModelConfig:
     backbone_out_channels: int = 256
     freeze_at: int = 2
     compute_dtype: str = "bfloat16"
+    # mean-teacher hint adaptor (MGD): a 1x1 conv per FPN level (MT.T_ADAPT)
+    with_hint_adaptor: bool = False
+    hint_dim: int = 128
     relation: Any = RelationNMSConfig()
     with_relation_mask: bool = True
     relation_mask: Any = MaskRelationConfig()
 
     @classmethod
-    def from_cfg(cls, cfg) -> "ModelConfig":
+    def from_cfg(cls, cfg, train: bool = False) -> "ModelConfig":
+        """The graph ``cfg`` asks for; ``train`` adds the MGD hint adaptor
+        where MT.FG_HINT > 0, as the JAX ``from_cfg(cfg, train=True)`` does
+        (inference builds none)."""
         m = cfg.MODEL
         unsupported = {
             "MODEL.RPN_ONLY": m.RPN_ONLY,
@@ -104,6 +113,7 @@ class ModelConfig:
             raise NotImplementedError(f"the port does not run these settings yet: {bad}")
         use_rel_mask = bool(m.RELATION_MASK.USE_RELATION)
         return cls(
+            with_hint_adaptor=bool(train and cfg.MT.FG_HINT > 0),
             image_size=cfg.TPU.IMAGE_SIZE,
             num_classes=m.ROI_BOX_HEAD.NUM_CLASSES,
             anchor_sizes=tuple(m.RPN.ANCHOR_SIZES),
@@ -146,6 +156,29 @@ class ModelConfig:
         )
 
 
+class HintAdaptor(nn.Module):
+    """One 1x1 conv per FPN level, 256 -> ``out_dim``: the MGD embedding
+    (reference MaskRCNNFPNAdaptor, roi_box_feature_extractors.py:45-75;
+    JAX ``HintAdaptor``). State names ``adapter_1`` .. ``adapter_5``."""
+
+    def __init__(self, in_channels: int = 256, out_dim: int = 128, levels: int = 5):
+        super().__init__()
+        for i in range(levels):
+            setattr(self, f"adapter_{i + 1}", Conv2d(in_channels, out_dim, 1))
+        self.levels = levels
+
+    def init_weights(self, gen: torch.Generator):
+        for i in range(self.levels):
+            conv = getattr(self, f"adapter_{i + 1}")
+            variance_scaling_(conv.weight, 1.0 / 3, "fan_in", "uniform", gen)
+            nn.init.zeros_(conv.bias)
+
+    def forward(self, features):
+        """NHWC levels -> NHWC embeddings [B, H_l, W_l, out_dim]."""
+        return [getattr(self, f"adapter_{i + 1}")(f.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+                for i, f in enumerate(features)]
+
+
 class MaskRCNN(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -163,6 +196,8 @@ class MaskRCNN(nn.Module):
                 mask.mask_relation_module = MaskRelationRefineNet(c.relation_mask, 256)
             self.roi_heads.mask = mask
         self.relation_nms = RelationNMS(c.relation)
+        if c.with_hint_adaptor:
+            self.hint_adaptor = HintAdaptor(ch, c.hint_dim, len(c.anchor_strides))
         for i, a in enumerate(fpn_anchors(c.image_size, c.anchor_strides, c.anchor_sizes, c.aspect_ratios)):
             self.register_buffer(f"anchors_{i}", torch.from_numpy(a), persistent=False)
         self.eval()
@@ -184,6 +219,8 @@ class MaskRCNN(nn.Module):
             if self.config.with_relation_mask:
                 mask.mask_relation_module.init_weights(gen)
         self.relation_nms.init_weights(gen)
+        if self.config.with_hint_adaptor:
+            self.hint_adaptor.init_weights(gen)
         return self
 
     @property
@@ -208,7 +245,7 @@ class MaskRCNN(nn.Module):
         c = self.config
         dev = images.device
         with record_function("backbone"):
-            features = self.backbone(images.to(self.compute_dtype))
+            features = self.backbone_features(images)
         with record_function("rpn_head"):
             objectness, box_reg = self.rpn(features)
         with record_function("rpn_loss"):
@@ -257,7 +294,7 @@ class MaskRCNN(nn.Module):
 
     def forward_test(self, images, image_sizes) -> Detections:
         with record_function("backbone"):
-            features = self.backbone(images.to(self.compute_dtype))
+            features = self.backbone_features(images)
         return self.detections_from_features(features, image_sizes)
 
     def box_forward(self, features, boxes, gen: torch.Generator | None = None):
@@ -286,6 +323,37 @@ class MaskRCNN(nn.Module):
         r = logits.shape[-1]
         return (logits.permute(0, 2, 3, 1).reshape(b, s, r, r, -1),
                 x.permute(0, 2, 3, 1).reshape(b, s, p, p, -1))
+
+    # -- sub-forwards of the mean-teacher step (JAX detector.py:366-406) --
+    def backbone_features(self, images):
+        """The feature pyramid P2..P6 of normalized NHWC images
+        (extract_aug_feat's building block, generalized_rcnn.py:201-215)."""
+        return self.backbone(images.to(self.compute_dtype))
+
+    def hint_embeddings(self, features):
+        """MGD embeddings of each level (generalized_rcnn.py:218-222)."""
+        return self.hint_adaptor(features)
+
+    def box_predictions(self, features, boxes, deterministic: bool = True, gen: torch.Generator | None = None):
+        """Pool, box MLP and predictor on given per-image box sets
+        (box_head.py:77-100): (class logits, box deltas, fc7 features).
+        ``deterministic`` runs no dropout; else ``gen`` draws its masks.
+        The JAX ``roi_chunk`` bounds a TPU temporary of its pooling
+        contraction; kernel K2 has no such temporary, so the port pools
+        every RoI of the stacked views in one launch."""
+        return self.box_forward(features, boxes, None if deterministic else gen)
+
+    def teacher_proposals(self, features, image_sizes, pseudo_gt: GroundTruth):
+        """Train-mode proposal selection against pseudo ground truth
+        (rpn.forward_teacher -> box_selector_train, rpn.py:146-177)."""
+        c = self.config
+        objectness, box_reg = self.rpn(features)
+        return select_proposals(
+            objectness, box_reg, self.anchors, image_sizes,
+            pre_nms_top_n=c.pre_nms_top_n_train, post_nms_top_n=c.post_nms_top_n_train,
+            fpn_post_nms_top_n=c.fpn_post_nms_top_n_train, nms_thresh=c.rpn_nms_thresh,
+            min_size=c.rpn_min_size, is_train=True, gt=pseudo_gt,
+        )
 
     def detections_from_features(self, features, image_sizes) -> Detections:
         # the record_function labels name the stages in a torch.profiler trace
@@ -336,9 +404,10 @@ def load_config(config_path: str = FLAGSHIP_CONFIG, opts=()):
     return cfg
 
 
-def model_from_cfg(cfg, device, seed: int = 0) -> MaskRCNN:
-    """The model of ``cfg`` with random weights made from ``seed``, in eval mode."""
-    model = MaskRCNN(ModelConfig.from_cfg(cfg))
+def model_from_cfg(cfg, device, seed: int = 0, train: bool = False) -> MaskRCNN:
+    """The model of ``cfg`` with random weights made from ``seed``, in eval
+    mode; ``train`` builds the training graph (the MGD hint adaptor)."""
+    model = MaskRCNN(ModelConfig.from_cfg(cfg, train=train))
     model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(device)
 

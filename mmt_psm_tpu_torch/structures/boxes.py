@@ -57,3 +57,11 @@ def nonempty_mask(boxes: torch.Tensor, min_size: float = 0.0) -> torch.Tensor:
     w = boxes[..., 2] - boxes[..., 0] + TO_REMOVE
     h = boxes[..., 3] - boxes[..., 1] + TO_REMOVE
     return (w >= min_size) & (h >= min_size)
+
+
+def hflip_boxes(boxes: torch.Tensor, width) -> torch.Tensor:
+    """Horizontal flip in a canvas ``width`` wide, +1 convention
+    (reference bounding_box.py:149-151)."""
+    x1 = width - boxes[..., 2] - TO_REMOVE
+    x2 = width - boxes[..., 0] - TO_REMOVE
+    return torch.stack([x1, boxes[..., 1], x2, boxes[..., 3]], dim=-1)

@@ -43,6 +43,7 @@ _RULES = [
     (r"^roi_heads\.mask\.feature_extractor\.mask_fcn(\d)", (r"mask_extractor/mask_fcn\1", "conv")),
     (r"^roi_heads\.mask\.predictor\.conv5_mask", ("mask_predictor/conv5_mask", "deconv")),
     (r"^roi_heads\.mask\.predictor\.mask_fcn_logits", ("mask_predictor/mask_fcn_logits", "conv")),
+    (r"^hint_adaptor\.adapter_(\d)", (r"hint_adaptor/adapter_\1", "conv")),
     (r"^relation_nms\.nms_rank_fc", ("relation_nms/nms_rank_fc", "linear")),
     (r"^relation_nms\.roi_feat_embedding_fc", ("relation_nms/roi_feat_embedding_fc", "linear")),
     (r"^relation_nms\.classifier", ("relation_nms/classifier", "linear")),
@@ -93,8 +94,7 @@ def load_jax_params(model: torch.nn.Module, flat: Dict[str, np.ndarray], pooled_
     """Copy every parameter and buffer of ``model.state_dict()`` from ``flat``.
 
     Raises if a port tensor has no JAX counterpart or the shapes disagree,
-    so a partial load cannot pass silently. JAX parameters the port does
-    not build (the mean teacher's ``hint_adaptor/*``) are not read.
+    so a partial load cannot pass silently.
     """
     sd = model.state_dict()
     new = {}

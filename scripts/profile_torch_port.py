@@ -1,6 +1,6 @@
 """Where the time goes in the port's flagship forward or train step, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_port.py [--batch 4] [--iters 10] [--out FILE] [--train]
+    python3 scripts/profile_torch_port.py [--batch 4] [--iters 10] [--out FILE] [--train | --mt]
 
 Runs ``mmt_psm_tpu_torch.build_model`` (configs/pap/mmt_psm_r50_fpn.yaml,
 1024 canvas, bf16, seeded random weights) and prints one JSON object:
@@ -26,6 +26,14 @@ numbers link the two in the trace), gradient accumulation into the leaves
 to ``accumulate_grad``; ``optimizer_ms`` is clipping and the SGD step;
 ``max_memory_allocated_mb`` is ``torch.cuda.max_memory_allocated()`` over
 the timed steps.
+With ``--mt`` it runs ``mmt_psm_tpu_torch.train.build_mt_trainer`` from
+iteration START_MT + 1 on synthetic labeled and unlabeled batches
+(``generate_unlabeled_batch``) and times ``MTTrainer.step`` the same way;
+its stages are the labels of the mean-teacher step (``MT_STAGES``: the
+supervised part, the teacher's backbone over the 2K views, its
+pseudo-labels, ``paste_integral``, the teacher's proposals and box head,
+the student's backbone, the hint adaptor, PSM, MGD), the backward charged
+to them, and ``optimizer_ms`` the clip, SGD step and teacher EMA.
 With ``--out`` the JSON is also written to that file.
 """
 
@@ -54,6 +62,11 @@ STAGES = ("backbone", "rpn_head", "rpn_select_proposals", "box_head", "relation_
 TRAIN_STAGES = ("backbone", "rpn_head", "rpn_loss", "rpn_select_proposals", "box_head", "relation_nms",
                 "mask_head", "mask_relation_ciam")
 STEP_LABELS = ("backward", "optimizer_step")
+# MTTrainer.step's labels (train/mt_step.py, train/mean_teacher.py)
+MT_STAGES = ("mt_supervised", "mt_teacher_backbone", "mt_teacher_pseudo_labels", "mt_paste_integral",
+             "mt_teacher_box_head", "mt_student_backbone", "mt_hint_adaptor", "mt_psm", "mt_mgd")
+# every record_function label of the port: a label's device-side span is no kernel
+ALL_LABELS = frozenset(STAGES + TRAIN_STAGES + STEP_LABELS + MT_STAGES)
 BACKWARD_NODE = "autograd::engine::evaluate_function: "
 PORT_KERNELS = K1_KERNELS + K2_KERNELS + K3_KERNELS
 
@@ -126,8 +139,8 @@ def breakdown(prof, labels, iters, wall_us):
     stages = {e.key: dev_us(e) / 1e3 / iters for e in prof.key_averages()
               if e.key in labels and not str(e.device_type).endswith("CUDA")}
     # device-side events only (a CPU op's device time repeats its kernels'),
-    # without the labels' own device-side annotation spans
-    kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.key not in labels]
+    # without the labels' own device-side annotation spans, nested ones too
+    kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.key not in ALL_LABELS]
     rows = sorted(((e.key, dev_us(e), e.count) for e in kern if dev_us(e) > 0), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     port = {}
@@ -152,6 +165,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--train", action="store_true", help="profile the supervised train step")
+    ap.add_argument("--mt", action="store_true", help="profile the mean-teacher train step")
     ap.add_argument("--out", help="also write the JSON result to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -161,33 +175,51 @@ def main() -> int:
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    if args.train:
-        from mmt_psm_tpu_torch.data.synthetic import batch_to_torch, generate_batch
-        from mmt_psm_tpu_torch.train import build_trainer
+    if args.train or args.mt:
+        from mmt_psm_tpu_torch.data.synthetic import (batch_to_torch, generate_batch, generate_unlabeled_batch,
+                                                      unlabeled_to_torch)
+        from mmt_psm_tpu_torch.train import build_mt_trainer, build_trainer
 
-        trainer = build_trainer(device=dev, seed=0)
+        trainer = (build_mt_trainer if args.mt else build_trainer)(device=dev, seed=0)
         c = trainer.model.config
-        batches = [batch_to_torch(generate_batch(s, args.batch, image_size=c.image_size,
-                                                 max_instances=int(trainer.cfg.TPU.MAX_GT)), dev) for s in range(3)]
+        max_gt = int(trainer.cfg.TPU.MAX_GT)
+        batches = [batch_to_torch(generate_batch(s, args.batch, image_size=c.image_size, max_instances=max_gt), dev)
+                   for s in range(3)]
         step = iter(range(10**9))
+        if args.mt:
+            mt = trainer.mt
+            unlabeled = [unlabeled_to_torch(generate_unlabeled_batch(10 + s, args.batch, image_size=c.image_size,
+                                                                     aug_k=mt.aug_k, aug_s=mt.aug_s,
+                                                                     max_instances=max_gt), dev) for s in range(3)]
+            trainer.iteration = mt.start_mt + 1
+            stages = MT_STAGES
+
+            def run():
+                i = next(step) % 3
+                trainer.step(batches[i], unlabeled[i])
+        else:
+            stages = TRAIN_STAGES
+
+            def run():
+                trainer.step(batches[next(step) % 3])
         torch.cuda.reset_peak_memory_stats(dev)
-        dev_ms, host_ms, prof, wall_us = timed_and_profiled(lambda: trainer.step(batches[next(step) % 3]),
-                                                            args.iters)
+        dev_ms, host_ms, prof, wall_us = timed_and_profiled(run, args.iters)
         peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
-        out = breakdown(prof, TRAIN_STAGES + STEP_LABELS, args.iters, wall_us)
+        out = breakdown(prof, stages + STEP_LABELS, args.iters, wall_us)
         labelled = out["stages_ms"]
-        backward = backward_by_stage(prof.events(), TRAIN_STAGES)
+        backward = backward_by_stage(prof.events(), stages)
         result = {
             "card": card, "batch": args.batch, "canvas": c.image_size, "dtype": c.compute_dtype,
+            "step": "mean_teacher" if args.mt else "supervised",
             "step_ms": statistics.median(dev_ms),
             "step_host_ms": statistics.median(host_ms),
             "images_per_s": args.batch * 1e3 / statistics.median(host_ms),
-            "stages_ms": {k: labelled[k] for k in TRAIN_STAGES},
+            "stages_ms": {k: labelled[k] for k in stages},
             "backward_ms": {k: v / 1e3 / args.iters for k, v in backward.items()},
             "backward_total_ms": sum(backward.values()) / 1e3 / args.iters,
             "optimizer_ms": labelled["optimizer_step"],
             "max_memory_allocated_mb": peak_mb,
-            "unlabelled_ms": out["device_busy_ms"] - sum(labelled[k] for k in TRAIN_STAGES)
+            "unlabelled_ms": out["device_busy_ms"] - sum(labelled[k] for k in stages)
             - labelled["optimizer_step"] - sum(backward.values()) / 1e3 / args.iters,
             **{k: out[k] for k in ("device_busy_share", "profiled_wall_ms_per_iter", "kernels", "port_kernels")},
         }

@@ -8,6 +8,8 @@ On a GPU host: ``python -m pytest tests/test_torch_port_cuda.py -m gpu --noconft
 ``chip_smoke.py`` makes the same comparisons at the flagship's shapes.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -187,3 +189,79 @@ def test_roi_align_autograd_runs_k2_and_k3(dev):
     want = P.multilevel_roi_align_backward_plain(g, boxes, [f.shape for f in feats], SCALES, 7, 2)
     for f, w in zip(feats, want):
         torch.testing.assert_close(f.grad, w, atol=1e-4, rtol=0.0)
+
+
+# the mean-teacher step at a 256 canvas, batch 2, the flagship's MT config
+MT_SMALL = ["TPU.IMAGE_SIZE", 256, "MODEL.RPN.PRE_NMS_TOP_N_TRAIN", 500, "MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN", 500,
+            "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 128]
+
+
+def _mt_run(dev, opts=(), swap=()):
+    """Two MT steps from iteration START_MT + 1, with the named wrappers'
+    kernel calls swapped for their plain versions (else the second with
+    synchronising calls made errors); returns (the first step's losses, the
+    second's, the kernel launches in the second). The relation head's
+    geometric gate is kept off its pole (chip_smoke.WG_BIAS)."""
+    import contextlib
+    from unittest import mock
+
+    from chip_smoke import MT_LAUNCHES, WG_BIAS, kernel_wrappers
+    from mmt_psm_tpu_torch.data.synthetic import (batch_to_torch, generate_batch, generate_unlabeled_batch,
+                                                  unlabeled_to_torch)
+    from mmt_psm_tpu_torch.train import build_mt_trainer
+
+    tr = build_mt_trainer(device=dev, seed=0, opts=MT_SMALL + list(opts))
+    with torch.no_grad():
+        for m in (tr.model, tr.teacher):
+            m.relation_nms.relation_module.WG.bias.fill_(WG_BIAS)
+    tr.iteration = tr.mt.start_mt + 1
+    lab = batch_to_torch(generate_batch(1, 2, image_size=256, max_instances=16), dev)
+    unl = unlabeled_to_torch(generate_unlabeled_batch(2, 2, image_size=256, max_instances=16), dev)
+    wrappers = kernel_wrappers()
+    counters = {k: getattr(mod, attr) for k, (mod, attr, _) in wrappers.items()}  # the kernels' wrappers count
+    with contextlib.ExitStack() as stack:
+        for name in swap:
+            stack.enter_context(mock.patch.object(*wrappers[name]))
+        first = tr.step(lab, unl)
+        torch.cuda.synchronize()
+        before = {k: fn.launches for k, fn in counters.items()}
+        if not swap:  # the plain versions copy small tables to the card, which syncs
+            stack.callback(torch.cuda.set_sync_debug_mode, "default")
+            torch.cuda.set_sync_debug_mode("error")
+        second = tr.step(lab, unl)
+    launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+    assert set(MT_LAUNCHES) == set(launches)
+    as_float = lambda d: {k: float(v) for k, v in d.items()}  # noqa: E731
+    return as_float(first), as_float(second), launches
+
+
+def test_mt_step_launches_each_kernel_and_never_syncs(dev):
+    """The MT step runs K1 4 times, K2 6 times and K3 3 times, with
+    synchronising calls made errors, and its losses are finite."""
+    from chip_smoke import MT_LAUNCHES
+
+    _, losses, launches = _mt_run(dev)
+    assert launches == MT_LAUNCHES
+    assert {"mt_classifier", "mt_fg_loss", "loss_total", "mt_weight"} <= set(losses)
+    assert all(map(math.isfinite, losses.values())), losses
+
+
+def test_mt_step_kernels_match_plain(dev):
+    """In float32 (TF32 off) the first MT step's losses with the kernels
+    equal those with every kernel's plain version within chip_smoke's
+    LOSS_RTOL (a second step starts from weights the two runs moved apart by
+    float32 rounding, which the relation head's loss amplifies)."""
+    from chip_smoke import LOSS_RTOL
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32 = ["TPU.COMPUTE_DTYPE", "float32"]
+        got, _, _ = _mt_run(dev, f32)
+        want, _, launches = _mt_run(dev, f32, swap=("nms", "roi_align", "roi_align_backward"))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    assert launches == {"nms": 0, "roi_align": 0, "roi_align_backward": 0}
+    assert {"mt_classifier", "mt_fg_loss"} <= set(want)
+    for k, w in want.items():
+        assert abs(got[k] - w) <= LOSS_RTOL * abs(w), (k, got[k], w)

@@ -92,6 +92,14 @@ def build_pair(seed: int = 0, **extra):
                 "running_var": rng.uniform(0.5, 2.0, n),
             }[leaf].astype(np.float32)
     flat["mask_relation.gamma"] = np.array([0.5], np.float32)
+    if jm.with_hint_adaptor:
+        # the forward_test init does not reach the MGD adaptor: its weights
+        # at the flax initialiser's scale, and a bias that is not 0
+        limit = (3.0 / 3.0 / jm.backbone_out_channels) ** 0.5
+        for i in range(1, len(jm.anchor_strides) + 1):
+            flat[f"hint_adaptor/adapter_{i}.kernel"] = rng.uniform(
+                -limit, limit, (1, 1, jm.backbone_out_channels, jm.hint_dim)).astype(np.float32)
+            flat[f"hint_adaptor/adapter_{i}.bias"] = rng.normal(0.0, 0.05, jm.hint_dim).astype(np.float32)
     params = {"params": unflatten(flat)}
     tmodel = MaskRCNN(tm)
     load_jax_params(tmodel, flat)
