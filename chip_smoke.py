@@ -29,17 +29,32 @@ line is printed):
      forward;
      one batch also in f32 with the kernels and with the plain versions,
      TF32 off, whose detections must agree;
-  7. the supervised train step (``build_trainer``, same config, bf16,
+  7. the serving path (``eval bf16``): the same model saved with the
+     port's ``Checkpointer``, then ``engine.inference.run_inference`` over
+     8 windows of 1024 px of synthetic slides (``EVAL_SLIDES``) whose gt
+     are the model's own pasted instances, every other one moved 2 px (so
+     AJI and mAP are above 0), batch 4, raw uint8 canvases through pinned
+     staging, host paste and Papeval in this process, in which K1 and K2
+     launch twice a batch; every stat finite, AJI and mAP above 0, and
+     equal to the same run scored by a pool of spawned eval workers (one
+     per spare core); the C++ library built into
+     ``mmt_psm_tpu_torch/_build/``, and on the first image its paste and
+     Papeval stats (AJI and mAP above 0) bit-identical to their plain
+     numpy versions; then the test CLI's ``main`` with ``--synthetic``
+     over the saved checkpoint, whose ``result.json`` must hold the JAX
+     CLI's keys; last, the host's seconds to start a Python process and
+     an eval worker's modules, one process at a time;
+  8. the supervised train step (``build_trainer``, same config, bf16,
      batch 4 of synthetic cells): 2 warm-up steps, one step with
      synchronising calls made errors, then 5 timed steps, in which K1
      launches once per step and K2 and K3 twice; every loss finite, the
      trainable parameters moved, the stem, layer1 and every FrozenBN tensor
      bit-unchanged;
-  8. one f32 train step with the kernels, against the same step with the
+  9. one f32 train step with the kernels, against the same step with the
      plain versions of all three and with K3's alone, TF32 off (the
      relation head's geometric gate kept off its pole, as in
      tests/test_torch_port_train_step.py): losses and every gradient agree;
-  9. the mean-teacher train step (``build_mt_trainer``, same config at its
+ 10. the mean-teacher train step (``build_mt_trainer``, same config at its
      full width: batch 4 labeled + 4 unlabeled of AUG_K = 2 teacher views
      and their flips and AUG_S = 1 student view, box-head dropout 0.5, 512
      RoIs an image) from iteration START_MT + 1: 2 warm-up steps (the last
@@ -51,22 +66,25 @@ line is printed):
      weight above 0, the teacher moved by the EMA and not the student, the
      student's frozen tensors bit-unchanged, the hint adaptor moved; peak
      memory;
- 10. one f32 MT step at batch 2 with the kernels, against the same step with
+ 11. one f32 MT step at batch 2 with the kernels, against the same step with
      the plain versions of all three and with K3's alone, at the ramp's
      plateau (START_MT + RAMPUP_STEP, where the MT losses count in full):
      losses, every gradient and the teacher's EMA move agree;
- 11. a ``{"kernels": [...]}`` line with each kernel's time over its calls
+ 12. a ``{"kernels": [...]}`` line with each kernel's time over its calls
      of one flagship forward (K1: the RPN's and relation-NMS's; K2: the box
      head's and the mask head's) or of one train step (K3: the box head's
      and the mask head's), its plain version's time and its bound on this
-     card, the K1 and K2 numbers of the train step under ``*_train`` keys
+     card, K1's and K2's launches in the serving path under
+     ``launches_eval``, the K1 and K2 numbers of the train step under ``*_train`` keys
      and every kernel's over the MT step's recorded calls under ``*_mt``
      keys (plain times too), after lines with each call's own times. A
      kernel's time is the device time of the kernels its wrapper launches
      (torch.profiler), without the host's time to launch them; a plain
      version's is CUDA events around it;
- 12. the throughput in patches/s and images/s (supervised and MT) beside
-     the card's name and power limit.
+ 13. the throughput in patches/s, evaluated patches/s (the serving path
+     scored serially, with the host seconds of each of its stages; the
+     pool's run and its start on a line of its own) and images/s
+     (supervised and MT) beside the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -604,6 +622,197 @@ def flagship_f32_vs_plain(dev):
           f"(limits {limits}), {int(got.valid.sum())} valid", flush=True)
 
 
+# ----------------------------------------------------------- serving path
+# 8 synthetic slides of one 1024-px window each (two slides of 2048 would
+# hold 128 x 2048^2 uint8 masks each while they are made); the cells' radii,
+# a fraction of the slide, are halved from the test CLI's 512-px slides, so
+# cells have the size of the CLI windows' cells
+EVAL_SLIDES = dict(seed=7, num_slides=8, slide_size=CANVAS, win_size=CANVAS, overlap=0.0, is_train=False,
+                   radius_range=(0.04, 0.09))
+EVAL_MAX_GT = 64
+RESULT_KEYS = {"AJI", "AJI_mean", "mAP", "AP50", "AP75", "AP85", "F1", "images_per_sec"}
+
+
+def own_instances_as_gt(model, ds, batch, canvas, max_gt):
+    """The windows of ``ds`` with the model's own pasted instances as gt
+    (at most ``max_gt`` an image, the categories taken in turn), every
+    other one moved 2 px right: stats that random weights would leave at 0
+    against the synthetic cells spread over (0, 1], so that comparing two
+    scorings of them can fail."""
+    import itertools
+
+    import numpy as np
+
+    from mmt_psm_tpu_torch.data.loader import make_test_loader
+    from mmt_psm_tpu_torch.engine.inference import DeviceStage
+    from mmt_psm_tpu_torch.engine.paste import detections_to_instseg
+
+    stage, items = DeviceStage(model), []
+    for b in make_test_loader(ds, batch, canvas, max_gt=max_gt, min_size=canvas, max_size=canvas, raw_u8=True):
+        boxes, scores, labels, valid, masks = stage.fetch(stage.dispatch(b))
+        for i in range(b["n_real"]):
+            h, w = b["image_size"][i].tolist()
+            gt = []
+            dt = detections_to_instseg(boxes[i], scores[i], labels[i], valid[i], masks[i].astype(np.float32),
+                                       (h, w))
+            for c, inst in sorted(dt.items()):
+                for k, (bx, m) in enumerate(zip(inst.boxes, inst.masks)):
+                    full = np.zeros((h, w), np.uint8)
+                    full[bx[1] : bx[3] + 1, bx[0] : bx[2] + 1] = m
+                    if k % 2:
+                        full = np.pad(full, ((0, 0), (2, 0)))[:, :w]
+                    if np.count_nonzero(full) >= 4:
+                        gt.append((c, full))
+            by_cat = [[g for g in gt if g[0] == c] for c in sorted({c for c, _ in gt})]
+            gt = [g for turn in itertools.zip_longest(*by_cat) for g in turn if g is not None][:max_gt]
+            yx = [np.nonzero(f) for _, f in gt]
+            items.append({"image": b["image"][i],
+                          "boxes": np.array([[x.min(), y.min(), x.max(), y.max()] for y, x in yx], np.float32)
+                          .reshape(-1, 4),
+                          "labels": np.array([c for c, _ in gt], np.int32),
+                          "masks": np.array([f for _, f in gt], np.uint8).reshape(-1, h, w)})
+    return items
+
+
+def scored(result, what):
+    """Raise unless ``result`` has an AJI and a mAP above 0."""
+    if not (max(result["AJI"].values(), default=0) > 0 and result["mAP"]["all"] > 0):
+        raise AssertionError(f"{what}: AJI {result['AJI']}, mAP {result['mAP']}: expected both above 0")
+
+
+def first_image_host_eval(batch, outs):
+    """The first image of a batch pasted and scored: (per-class instance
+    masks, Papeval's rows, its summary)."""
+    import numpy as np
+
+    from mmt_psm_tpu_torch.engine.paste import detections_to_instseg, gt_to_instseg
+    from mmt_psm_tpu_torch.evaluation.pap_eval import PapEvaluator
+
+    boxes, scores, labels, valid, masks = outs
+    dt = detections_to_instseg(boxes[0], scores[0], labels[0], valid[0], masks[0].astype(np.float32),
+                               tuple(batch["image_size"][0].tolist()))
+    gt = gt_to_instseg(batch["boxes"][0], batch["labels"][0], batch["gt_valid"][0], batch["masks"][0])
+    ev = PapEvaluator()
+    ev.add_image(dt, gt)
+    inst = {c: (v.boxes.tolist(), [m.tobytes() for m in v.masks]) for c, v in dt.items()}
+    rows = [(r.category_id, r.n_gt, r.n_dt, r.aji, r.f1, r.fnr, r.fdr, r.map_dtm.tobytes(), r.dsc.tobytes(),
+             r.tpr.tobytes()) for r in ev.results]
+    return inst, rows, ev.summarize()
+
+
+def eval_path(dev, stats):
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from mmt_psm_tpu_torch import build_model
+    from mmt_psm_tpu_torch.data.loader import make_test_loader, usable_cpus
+    from mmt_psm_tpu_torch.data.pap import synthetic_slide_dataset
+    from mmt_psm_tpu_torch.engine import inference as I
+    from mmt_psm_tpu_torch.evaluation import _native
+    from mmt_psm_tpu_torch.models.detector import FLAGSHIP_CONFIG
+    from mmt_psm_tpu_torch.ops import nms as N
+    from mmt_psm_tpu_torch.ops import pooler as Pm
+    from mmt_psm_tpu_torch.tools import test_net
+    from mmt_psm_tpu_torch.utils.checkpoint import Checkpointer
+
+    model = build_model(device=dev, seed=0)
+    t = time.perf_counter()
+    ds = synthetic_slide_dataset(**EVAL_SLIDES)
+    data_s = time.perf_counter() - t
+    if len(ds) != 8:
+        raise AssertionError(f"{len(ds)} windows, expected 8")
+    t = time.perf_counter()
+    items = own_instances_as_gt(model, ds, BATCH, CANVAS, EVAL_MAX_GT)
+    gt_s = time.perf_counter() - t
+    n_gt = [len(it["labels"]) for it in items]
+    if min(n_gt) == 0:
+        raise AssertionError(f"gt instances an image: {n_gt}")
+    gt_by_cat = {int(c): int(n) for c, n in zip(*np.unique(np.concatenate([it["labels"] for it in items]),
+                                                             return_counts=True))}
+    batches = lambda: make_test_loader(items, BATCH, CANVAS, max_gt=EVAL_MAX_GT, min_size=CANVAS,  # noqa: E731
+                                       max_size=CANVAS, raw_u8=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        Checkpointer(tmp).save("model_0000001", {"model": model.state_dict()})
+        # the measured run: scored in this process, which is what 8 windows
+        # are fastest with (a pool's start is reported beside it)
+        N.suppress_cuda.launches = 0
+        Pm.multilevel_roi_align_cuda.launches = 0
+        result, timing = I.run_inference(model, batches(), eval_workers=0)
+        launches = {"nms": N.suppress_cuda.launches, "roi_align": Pm.multilevel_roi_align_cuda.launches}
+        n_batches = -(-len(items) // BATCH)
+        # per batch: K1 for the RPN and relation-NMS, K2 for the box and mask heads
+        for k, v in launches.items():
+            if v != 2 * n_batches:
+                raise AssertionError(f"kernel {k} launched {v} times in {n_batches} eval batches, "
+                                     f"expected {2 * n_batches}")
+            stats[k]["launches_eval"] = v
+        if timing["images"] != len(items):
+            raise AssertionError(f"{timing['images']} images evaluated, expected {len(items)}")
+        bad = {m: v for m, per in result.items() for v in per.values() if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"non-finite stats: {bad}")
+        scored(result, "serial run")
+        # the same run scored by a pool of spawned workers: rows in image order
+        workers = max(usable_cpus() - 1, 0)
+        pooled, pool_timing = I.run_inference(model, batches(), eval_workers=-1)
+        if pool_timing["pool_start_seconds"] is None:
+            raise AssertionError(f"no pool of eval workers on {usable_cpus()} cores")
+        if pooled != result:
+            raise AssertionError("stats of the pool of eval workers differ from the serial run's")
+
+        # the C++ library against its plain numpy versions on the first image
+        batch = next(batches())
+        stage = I.DeviceStage(model)
+        outs = stage.fetch(stage.dispatch(batch))
+        native = first_image_host_eval(batch, outs)
+        build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mmt_psm_tpu_torch", "_build")
+        if os.path.dirname(_native.library_path() or "") != build:
+            raise AssertionError(f"the C++ library was loaded from {_native.library_path()}, not from {build}")
+        scored(native[2], "first image")
+        with contextlib.ExitStack() as swap:
+            for entry in _native.ENTRY_POINTS:
+                swap.enter_context(mock.patch.object(_native, entry, getattr(_native, entry + "_plain")))
+            plain = first_image_host_eval(batch, outs)
+        for what, a, b in zip(("instance masks", "Papeval rows", "Papeval stats"), native, plain):
+            if a != b:
+                raise AssertionError(f"first image: {what} of the C++ library differ from the plain versions")
+        n_inst = sum(len(v[1]) for v in native[0].values())
+
+        t = time.perf_counter()
+        out_dir = os.path.join(tmp, "out")
+        test_net.main(["--config-file", FLAGSHIP_CONFIG, "--ckpt-dir", tmp, "--synthetic", "--output-dir", out_dir,
+                       "TEST.IMS_PER_BATCH", str(BATCH)])
+        cli_s = time.perf_counter() - t
+        with open(os.path.join(out_dir, "result.json")) as f:
+            rows = json.load(f)
+        if list(rows) != ["model_0000001"] or set(rows["model_0000001"]) != RESULT_KEYS:
+            raise AssertionError(f"unexpected result.json: {rows}")
+        if not os.path.exists(os.path.join(out_dir, "best_result.json")):
+            raise AssertionError("no best_result.json")
+    print(f"eval bf16: {timing['images']} windows of {CANVAS}px (data made in {data_s:.3f} s on the host, "
+          f"{EVAL_SLIDES}; the model's own instances as gt, {n_gt} an image, {gt_by_cat} by category, in {gt_s:.3f} s), batch {BATCH}, "
+          f"launches {launches}; first image {n_inst} pasted instances, paste and stats of the C++ library "
+          f"identical to the plain versions; stats {json.dumps(result)}; "
+          f"CLI --synthetic in {cli_s:.3f} s: {json.dumps(rows)}", flush=True)
+    print(f"eval pool ({workers} spawned workers, stats identical to the serial run's): "
+          f"{pool_timing['images_per_sec']} evaluated patches/s, the pool's start "
+          f"{pool_timing['pool_start_seconds']} s, stage_seconds {json.dumps(pool_timing['stage_seconds'])} of "
+          f"{pool_timing['seconds']} s", flush=True)
+    # an eval worker's own start; the pool's start above also holds each
+    # worker's import of the main module (this script, and so torch)
+    starts = {}
+    for what, code in (("python", "pass"),
+                       ("eval worker", "import mmt_psm_tpu_torch.engine._eval_worker as w; w.ping()")):
+        t = time.perf_counter()
+        subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+        starts[what] = time.perf_counter() - t
+    print(f"process start on the host, one at a time (s): {json.dumps(starts)}", flush=True)
+    return timing
+
+
 # ------------------------------------------------------------- train path
 def frozen_names(model):
     """state_dict names the step must leave bit-unchanged: the stem, layer1
@@ -974,11 +1183,15 @@ def main() -> int:
     phase("K3 roi_align backward vs plain", lambda: check_roi_align_backward(dev, stats))
     patches_per_s = phase("flagship bf16", lambda: flagship(dev, stats))
     phase("flagship f32 vs plain", lambda: flagship_f32_vs_plain(dev))
+    eval_timing = phase("eval bf16", lambda: eval_path(dev, stats))
     images_per_s = phase("train bf16", lambda: train_path(dev, stats))
     phase("train f32 vs plain", lambda: train_f32_vs_plain(dev))
     mt_images_per_s, mt_peak_gib = phase("mt bf16", lambda: mt_path(dev, stats))
     phase("mt f32 vs plain", lambda: mt_f32_vs_plain(dev))
     print(f"throughput: {patches_per_s:.3f} patches/s at {CANVAS}px, batch {BATCH}, bf16 on {card}", flush=True)
+    print(f"eval throughput: {eval_timing['images_per_sec']} evaluated patches/s at {CANVAS}px, batch {BATCH}, bf16, "
+          f"host paste and Papeval included, scored serially; stage_seconds "
+          f"{json.dumps(eval_timing['stage_seconds'])} of {eval_timing['seconds']} s on {card}", flush=True)
     print(f"train throughput: {images_per_s:.3f} images/s at {CANVAS}px, batch {BATCH}, bf16 on {card}",
           flush=True)
     print(f"mt throughput: {mt_images_per_s:.3f} labeled images/s ({BATCH} labeled + {BATCH} unlabeled a step), "

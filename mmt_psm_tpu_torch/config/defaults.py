@@ -1,13 +1,13 @@
-"""Default configuration tree for the inference, supervised and mean-teacher
-training paths.
+"""Default configuration tree for the inference, serving, supervised and
+mean-teacher training paths.
 
 The keys of the JAX package's ``config/defaults.py`` (which mirrors the
 reference's yacs key space, maskrcnn_benchmark/config/defaults.py) that
-the port's ``ModelConfig.from_cfg``, its optimizer and ``MTConfig.from_cfg``
-read, with the same defaults, so ``configs/pap/*.yaml`` merges unchanged;
-the whole MT block is copied, so a YAML that is silent on a key (ODKD,
-FFI, PLTRAIN, ...) gets the JAX default. Other keys in a YAML (DATASETS,
-...) merge in as plain values.
+the port's ``ModelConfig.from_cfg``, its optimizer, ``MTConfig.from_cfg``
+and the test CLI (``tools/test_net.py``) read, with the same defaults, so
+``configs/pap/*.yaml`` merges unchanged; the whole MT block is copied, so
+a YAML that is silent on a key (ODKD, FFI, PLTRAIN, ...) gets the JAX
+default. Other keys in a YAML merge in as plain values.
 """
 
 from .node import ConfigNode
@@ -20,6 +20,24 @@ def get_cfg() -> ConfigNode:
     C.MODEL = ConfigNode()
     C.MODEL.RPN_ONLY = False
     C.MODEL.MASK_ON = False
+
+    C.INPUT = ConfigNode()
+    C.INPUT.MIN_SIZE_TEST = 800
+    C.INPUT.MAX_SIZE_TEST = 1333
+    # BGR 0-255 pixel normalization (reference config/defaults.py:48-52)
+    C.INPUT.PIXEL_MEAN = [102.9801, 115.9465, 122.7717]
+    C.INPUT.PIXEL_STD = [1.0, 1.0, 1.0]
+
+    C.DATASETS = ConfigNode()
+    C.DATASETS.TEST = ()
+    C.DATASETS.VAL = ("papnuclei_val",)
+    C.DATASETS.MODE_IN_TEST = "val"
+
+    C.DATALOADER = ConfigNode()
+    C.DATALOADER.SIZE_DIVISIBILITY = 0
+    # test batches assembled ahead in a background thread (data/loader.py
+    # prefetch): 0 synchronous, -1 auto (2 with a spare core)
+    C.DATALOADER.PREFETCH_DEPTH = -1
 
     C.MODEL.BACKBONE = ConfigNode()
     C.MODEL.BACKBONE.CONV_BODY = "R-50-C4"
@@ -154,6 +172,18 @@ def get_cfg() -> ConfigNode:
     C.SOLVER.WARMUP_METHOD = "linear"
     # 0 disables; > 0 clips the global gradient norm
     C.SOLVER.CLIP_GRAD_NORM = 0.0
+
+    C.TEST = ConfigNode()
+    # (metric path, mean, std) rows checked by engine.inference.check_expected_results
+    C.TEST.EXPECTED_RESULTS = []
+    C.TEST.EXPECTED_RESULTS_SIGMA_TOL = 4
+    C.TEST.IMS_PER_BATCH = 1
+    C.TEST.GEN = False
+    C.TEST.TTA = False
+    C.TEST.VISUAL_NUM = 0
+    # processes that paste and score images (engine/_eval_worker.py): 0
+    # serial, -1 auto (one per spare core, serial without spare cores)
+    C.TEST.EVAL_WORKERS = -1
 
     # static-shape knobs: every image is padded to IMAGE_SIZE square and
     # carries MAX_GT ground-truth rows

@@ -13,7 +13,7 @@ import math
 import pytest
 import torch
 
-from chip_smoke import NMS_EDGE_CASES, nms_edge_case
+from chip_smoke import NMS_EDGE_CASES, nms_edge_case, own_instances_as_gt
 from mmt_psm_tpu_torch.ops import nms as N
 from mmt_psm_tpu_torch.ops import pooler as P
 
@@ -265,3 +265,94 @@ def test_mt_step_kernels_match_plain(dev):
     assert {"mt_classifier", "mt_fg_loss"} <= set(want)
     for k, w in want.items():
         assert abs(got[k] - w) <= LOSS_RTOL * abs(w), (k, got[k], w)
+
+
+# the serving path at a 256 canvas in float32: 4 windows of a synthetic slide, batches of 3
+EVAL_SMALL = ["TPU.IMAGE_SIZE", 256, "TPU.COMPUTE_DTYPE", "float32", "MODEL.RPN.PRE_NMS_TOP_N_TEST", 256,
+              "MODEL.RPN.POST_NMS_TOP_N_TEST", 256, "MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", 64]
+EVAL_LOADER = dict(max_gt=32, min_size=256, max_size=256, raw_u8=True)
+# pasted masks threshold probabilities that the kernels move by float32
+# summation order (chip_smoke's flagship f32 check: masks within 1e-3); a
+# pixel that flips moves an IoU-based stat of instances of hundreds of
+# pixels by well under this
+EVAL_STATS_ATOL = 1e-2
+
+
+def test_run_inference_on_the_card_matches_cpu(dev):
+    """``run_inference`` with the model on the card (pinned double-buffered
+    staging, normalization on the card, K1 and K2 twice a batch, two eval
+    workers) against the same weights on the CPU with the plain versions,
+    float32 with TF32 off: the same image count, and every stat within
+    EVAL_STATS_ATOL."""
+    from mmt_psm_tpu_torch.data.loader import make_test_loader
+    from mmt_psm_tpu_torch.data.pap import synthetic_slide_dataset
+    from mmt_psm_tpu_torch.engine.inference import run_inference
+    from mmt_psm_tpu_torch.models.detector import load_config, model_from_cfg
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = load_config(opts=EVAL_SMALL)
+        cpu, gpu = model_from_cfg(cfg, "cpu"), model_from_cfg(cfg, dev)
+        ds = synthetic_slide_dataset(seed=42, num_slides=1, slide_size=512, win_size=256, overlap=0.0,
+                                     is_train=False)
+        items = own_instances_as_gt(cpu, ds, 3, 256, EVAL_LOADER["max_gt"])
+        assert len(items) == 4 and sum(len(it["labels"]) for it in items) > 10
+        before = (N.suppress_cuda.launches, P.multilevel_roi_align_cuda.launches)
+        got, timing = run_inference(gpu, make_test_loader(items, 3, 256, **EVAL_LOADER), eval_workers=2)
+        launched = (N.suppress_cuda.launches - before[0], P.multilevel_roi_align_cuda.launches - before[1])
+        want, want_timing = run_inference(cpu, make_test_loader(items, 3, 256, **EVAL_LOADER), eval_workers=0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    assert launched == (4, 4)  # two batches, K1 and K2 twice each
+    assert timing["images"] == want_timing["images"] == 4
+    assert set(got) == set(want)
+    for metric, per in want.items():
+        assert set(got[metric]) == set(per), metric
+        for k, w in per.items():
+            assert abs(got[metric][k] - w) <= EVAL_STATS_ATOL, (metric, k, got[metric][k], w)
+    assert want["AJI"][1] > 0 and want["mAP"]["all"] > 0
+
+
+def test_device_stage_launches_without_a_sync(dev):
+    """Launching a batch (the copy through pinned staging, normalization on
+    the card, the forward, the copies back into pinned buffers) makes no
+    synchronising call, in both staging slots and on reuse, so the host
+    scores batch i while the card runs batch i + 1; the outputs equal those
+    of a forward on the same canvases normalized on the host."""
+    import numpy as np
+
+    from mmt_psm_tpu_torch.data.loader import make_test_loader
+    from mmt_psm_tpu_torch.data.pap import synthetic_slide_dataset
+    from mmt_psm_tpu_torch.data.transforms import normalize_bgr255
+    from mmt_psm_tpu_torch.engine.inference import DeviceStage
+    from mmt_psm_tpu_torch.models.detector import load_config, model_from_cfg
+
+    model = model_from_cfg(load_config(opts=EVAL_SMALL), dev)
+    ds = synthetic_slide_dataset(seed=1, num_slides=1, slide_size=512, win_size=256, overlap=0.0, is_train=False)
+    batches = list(make_test_loader(ds, 2, 256, **dict(EVAL_LOADER, raw_u8=True)))
+    stage = DeviceStage(model)
+    warm = [stage.dispatch(b) for b in batches]
+    [stage.fetch(p) for p in warm]
+    torch.cuda.synchronize()
+
+    def launch(*bs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return [stage.dispatch(b) for b in bs]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    p0, p1 = launch(*batches)
+    outs = [stage.fetch(p0)]
+    (p2,) = launch(batches[0])  # slot 0 again, once its outputs were fetched
+    outs += [stage.fetch(p1), stage.fetch(p2)]
+    b = batches[0]
+    x = np.zeros(b["image"].shape, np.float32)
+    for i, (h, w) in enumerate(b["image_size"]):
+        x[i, :h, :w] = normalize_bgr255(b["image"][i, :h, :w])
+    d = model(torch.from_numpy(x).to(dev), torch.from_numpy(b["image_size"]).to(dev))
+    for got in (outs[0], outs[2]):
+        np.testing.assert_array_equal(got[3], d.valid.cpu().numpy())
+        np.testing.assert_array_equal(got[0], d.boxes.cpu().numpy())
+        np.testing.assert_array_equal(got[4], d.masks.half().cpu().numpy())

@@ -24,6 +24,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "mmt_psm_tpu"))
 print("MODULES", len([k for k in sys.modules if k.startswith("mmt_psm_tpu_torch")]))
 print("BAD", bad)
+print("SERVING", ",".join(k.split(".", 1)[1] for k in sys.modules if k.startswith("mmt_psm_tpu_torch.")))
 """
 
 
@@ -34,7 +35,22 @@ def test_import_guard_no_jax():
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
     assert lines["BAD"] == "[]"
-    assert int(lines["MODULES"]) >= 20  # every module of the package was imported
+    assert int(lines["MODULES"]) >= 40  # every module of the package was imported
+    serving = ("evaluation.instmask", "evaluation._native", "evaluation.pap_eval", "engine.paste",
+               "engine._eval_worker", "engine.inference", "engine.predictor", "data.transforms", "data.loader",
+               "data.pap", "data.catalog", "utils.checkpoint", "tools.test_net")
+    assert set(serving) <= set(lines["SERVING"].split(","))
+
+
+def test_eval_worker_imports_without_torch():
+    """What a spawned eval worker imports: numpy and the C++ library, never
+    torch (the package's names load ``models`` lazily)."""
+    code = ("import sys, mmt_psm_tpu_torch.engine._eval_worker as w; w.ping(); "
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in ('torch', 'jax', 'mmt_psm_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=U.REPO, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=U.REPO))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_sources_import_nothing_of_the_jax_package():

@@ -51,16 +51,16 @@ def flatten(tree, prefix=()):
 
 def configs(**extra):
     """(JAX ModelConfig, port ModelConfig) of the flagship YAML, cut to SMALL
-    (plus ``extra`` fields, e.g. TRAIN_SMALL)."""
+    (``extra`` fields, e.g. TRAIN_SMALL, added or put in its place)."""
     jcfg = jax_get_cfg()
     jcfg.merge_from_file(FLAGSHIP)
     jm = JaxModelConfig.from_cfg(jcfg, train=False)
-    jm = dataclasses.replace(jm, **SMALL, **extra,
+    jm = dataclasses.replace(jm, **{**SMALL, **extra},
                              relation_mask=dataclasses.replace(jm.relation_mask, compute_dtype="float32"))
     tcfg = get_cfg()
     tcfg.merge_from_file(FLAGSHIP)
     tm = ModelConfig.from_cfg(tcfg)
-    tm = dataclasses.replace(tm, **SMALL, **extra,
+    tm = dataclasses.replace(tm, **{**SMALL, **extra},
                              relation_mask=dataclasses.replace(tm.relation_mask, compute_dtype="float32"))
     return jm, tm
 
