@@ -70,21 +70,37 @@ line is printed):
      the plain versions of all three and with K3's alone, at the ramp's
      plateau (START_MT + RAMPUP_STEP, where the MT losses count in full):
      losses, every gradient and the teacher's EMA move agree;
- 12. a ``{"kernels": [...]}`` line with each kernel's time over its calls
+ 12. the training entry point (``train CLI bf16``): the train CLI's ``main``
+     with ``--synthetic`` at the flagship's full width (1024 canvas, bf16,
+     batch 4, 2 + 1 views), START_MT 2, MAX_ITER 6, CHECKPOINT_PERIOD 2,
+     into a temporary directory: inside its loop K1 launches 15 times, K2
+     24 and K3 15 (3 supervised and 3 MT steps); the checkpoints
+     model_0000002, model_0000004, t_model_0000004, model_final and
+     t_model_final and the tag; every logged loss finite; final_eval.json
+     with the JAX CLI's keys; then MAX_ITER 8 with ``--skip-test``, which
+     must resume at iteration 6. Printed: the loop's labeled images/s over
+     its warm iterations 1-5 (iteration 0 waits for the first batch)
+     beside the same 2 supervised and 3 MT steps at the step rates of
+     phases 8 and 10, the seconds it waited on each loader, each
+     save's seconds and the checkpoints' bytes; then each training loader's
+     batches/s over 3 batches of 1000-px windows at MIN_SIZE_TRAIN 800;
+ 13. a ``{"kernels": [...]}`` line with each kernel's time over its calls
      of one flagship forward (K1: the RPN's and relation-NMS's; K2: the box
      head's and the mask head's) or of one train step (K3: the box head's
      and the mask head's), its plain version's time and its bound on this
      card, K1's and K2's launches in the serving path under
-     ``launches_eval``, the K1 and K2 numbers of the train step under ``*_train`` keys
-     and every kernel's over the MT step's recorded calls under ``*_mt``
-     keys (plain times too), after lines with each call's own times. A
+     ``launches_eval``, the K1 and K2 numbers of the train step under ``*_train`` keys,
+     every kernel's over the MT step's recorded calls under ``*_mt``
+     keys (plain times too) and its launches in the train CLI's loop under
+     ``launches_cli``, after lines with each call's own times. A
      kernel's time is the device time of the kernels its wrapper launches
      (torch.profiler), without the host's time to launch them; a plain
      version's is CUDA events around it;
- 13. the throughput in patches/s, evaluated patches/s (the serving path
+ 14. the throughput in patches/s, evaluated patches/s (the serving path
      scored serially, with the host seconds of each of its stages; the
-     pool's run and its start on a line of its own) and images/s
-     (supervised and MT) beside the card's name and power limit.
+     pool's run and its start on a line of its own), images/s
+     (supervised, MT and the train CLI's loop) and the training loaders'
+     batches/s beside the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -631,6 +647,8 @@ EVAL_SLIDES = dict(seed=7, num_slides=8, slide_size=CANVAS, win_size=CANVAS, ove
                    radius_range=(0.04, 0.09))
 EVAL_MAX_GT = 64
 RESULT_KEYS = {"AJI", "AJI_mean", "mAP", "AP50", "AP75", "AP85", "F1", "images_per_sec"}
+# final_eval.json of the train CLI (the JAX CLI's, tools/train_mean_teacher.py:155-161)
+FINAL_EVAL_KEYS = {"AJI", "AJI_mean", "mAP", "AP50", "images_per_sec"}
 
 
 def own_instances_as_gt(model, ds, batch, canvas, max_gt):
@@ -810,7 +828,7 @@ def eval_path(dev, stats):
                        cwd=os.path.dirname(os.path.abspath(__file__)))
         starts[what] = time.perf_counter() - t
     print(f"process start on the host, one at a time (s): {json.dumps(starts)}", flush=True)
-    return timing
+    return timing, ds
 
 
 # ------------------------------------------------------------- train path
@@ -1167,6 +1185,155 @@ def mt_f32_vs_plain(dev):
     print("mt f32 kernels vs " + "; ".join(lines), flush=True)
 
 
+# ---------------------------------------------------- training entry point
+# the first CLI run: START_MT 2, MAX_ITER 6, so iterations 0-2 take the
+# supervised step (K1 1, K2 2, K3 2 launches each) and 3-5 the MT step
+# (MT_LAUNCHES each); a save every 2 iterations, the teacher's past START_MT
+CLI_OPTS = ["MT.START_MT", "2", "SOLVER.CHECKPOINT_PERIOD", "2", "TEST.EVAL_WORKERS", "0"]
+CLI_LAUNCHES = {"nms": 3 + 3 * 4, "roi_align": 3 * 2 + 3 * 6, "roi_align_backward": 3 * 2 + 3 * 3}
+CLI_NAMES = ["model_0000002", "model_0000004", "model_final", "t_model_0000004", "t_model_final"]
+LOADER_BATCHES = 3
+
+
+class Waited:
+    """An iterator that sums the seconds its consumer waits in ``next``."""
+
+    def __init__(self, it):
+        self.it, self.seconds = it, 0.0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t = time.perf_counter()
+        try:
+            return next(self.it)
+        finally:
+            self.seconds += time.perf_counter() - t
+
+    def close(self):
+        close = getattr(self.it, "close", None)
+        if close is not None:
+            close()
+
+
+def train_cli_path(dev, stats, sup_images_per_s, mt_images_per_s, eval_ds):
+    import os
+    import tempfile
+
+    from mmt_psm_tpu_torch.data.loader import make_source_loader, make_unlabeled_loader
+    from mmt_psm_tpu_torch.data.pap import PapDataset, PapUnlabeledDataset
+    from mmt_psm_tpu_torch.engine import trainer as T
+    from mmt_psm_tpu_torch.tools import train_mean_teacher
+
+    counters = {k: getattr(mod, attr) for k, (mod, attr, _) in kernel_wrappers().items()}
+    runs, waits, saves = [], [], []
+    real_train, real_save, real_prefetch = T.MTTrainer.train, T.MTTrainer.save, T.prefetch
+
+    def train(self, start_iter=0):
+        # the loop's launches: counts set to 0 just before it, read just after
+        for fn in counters.values():
+            fn.launches = 0
+        n_saves = len(saves)
+        t = time.perf_counter()
+        out = real_train(self, start_iter)
+        torch.cuda.synchronize()
+        runs.append(dict(loop=self, start=start_iter, seconds=time.perf_counter() - t, saves=saves[n_saves:],
+                         launches={k: fn.launches for k, fn in counters.items()}))
+        return out
+
+    def save(self, iteration, final=False):
+        t = time.perf_counter()
+        real_save(self, iteration, final)
+        saves.append(("model_final" if final else f"model_{iteration:07d}", time.perf_counter() - t))
+
+    def prefetch(batches, depth):  # the loop's waits on each loader: source first
+        waits.append(Waited(real_prefetch(batches, depth)))
+        return waits[-1]
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(T.MTTrainer, "train", train), mock.patch.object(T.MTTrainer, "save", save), \
+            mock.patch.object(T, "prefetch", prefetch):
+        out = os.path.join(tmp, "run")
+        flags = ["--synthetic", "--output-dir", out]
+        first = train_mean_teacher.main(flags + CLI_OPTS + ["SOLVER.MAX_ITER", "6"])
+        loop, width = first["trainer"], first["trainer"].steps.model.config
+        if (width.image_size, width.compute_dtype, int(loop.cfg.SOLVER.IMS_PER_BATCH), loop.mt.aug_k,
+                loop.mt.aug_s) != (CANVAS, "bfloat16", BATCH, 2, 1):
+            raise AssertionError(f"not the flagship's width: {width.image_size} {width.compute_dtype}")
+        run = runs[0]
+        if run["launches"] != CLI_LAUNCHES:
+            raise AssertionError(f"kernel launches in the CLI's loop: {run['launches']}, expected {CLI_LAUNCHES}")
+        for k, v in run["launches"].items():
+            stats[k]["launches_cli"] = v
+        names = sorted(f[: -len(".pth")] for f in os.listdir(out) if f.endswith(".pth"))
+        with open(os.path.join(out, "last_checkpoint")) as f:
+            tag = f.read().strip()
+        if names != CLI_NAMES or tag != "model_final":
+            raise AssertionError(f"checkpoints {names}, tag {tag}: expected {CLI_NAMES}, model_final")
+        losses = {k: list(m.deque) for k, m in loop.meters.meters.items() if k != "time"}
+        if len(losses["loss_total"]) != 6 or len(losses["mt_weight"]) != 3 or \
+                not all(math.isfinite(x) for v in losses.values() for x in v):
+            raise AssertionError(f"logged losses not finite: {losses}")
+        with open(os.path.join(out, "log.txt")) as f:
+            logged = [int(m) for m in re.findall(r"iter: (\d+) ", f.read())]
+        with open(os.path.join(out, "final_eval.json")) as f:
+            summary = json.load(f)
+        if logged != [0, 5] or set(summary) != FINAL_EVAL_KEYS:
+            raise AssertionError(f"logged iterations {logged}, final_eval.json keys {sorted(summary)}")
+        sizes = {n: os.path.getsize(os.path.join(out, f"{n}.pth")) for n in names}
+        source_wait, unlabeled_wait = (w.seconds for w in waits[:2])
+        step_s = run["seconds"] - sum(s for _, s in run["saves"])
+        # warm: iterations 1-5 (2 supervised, 3 MT), without iteration 0's wait
+        # for the first batch; the saves after iterations 2 and 4 fall into the
+        # times of iterations 3 and 5
+        times = list(loop.meters.meters["time"].deque)
+        warm_s = sum(times[1:]) - sum(s for n, s in run["saves"] if n != "model_final")
+        warm = BATCH * 5 / warm_s
+        # the same 2 supervised + 3 MT steps at the rates of train bf16 and mt bf16
+        steps_alone = BATCH * 5 / (2 * BATCH / sup_images_per_s + 3 * BATCH / mt_images_per_s)
+
+        second = train_mean_teacher.main(flags + ["--skip-test"] + CLI_OPTS + ["SOLVER.MAX_ITER", "8"])
+        if second["start_iter"] != 6 or runs[1]["start"] != 6:
+            raise AssertionError(f"the second run started at iteration {second['start_iter']}, not 6")
+        resumed = {k: list(m.deque) for k, m in second["trainer"].meters.meters.items() if k != "time"}
+        if len(resumed["mt_weight"]) != 2 or not all(math.isfinite(x) for v in resumed.values() for x in v):
+            raise AssertionError(f"losses of the resumed run: {resumed}")
+    print(f"train CLI bf16: --synthetic at {CANVAS}px, batch {BATCH}, {loop.mt.aug_k} + {loop.mt.aug_s} views, "
+          f"START_MT 2, 6 iterations (3 supervised, 3 MT) in {run['seconds']:.3f} s, launches {run['launches']}; "
+          f"checkpoints {names}, tag {tag}; logged iterations {logged}; final_eval {json.dumps(summary)}; "
+          f"resumed at iteration {second['start_iter']} to 8 in {runs[1]['seconds']:.3f} s", flush=True)
+    print(f"train CLI loop: {warm:.3f} labeled images/s over iterations 1-5 (2 supervised, 3 MT) without the "
+          f"saves ({warm_s:.3f} s), against {steps_alone:.3f} for the same steps alone at the rates of train bf16 "
+          f"({sup_images_per_s:.3f}) and mt bf16 ({mt_images_per_s:.3f}); all 6 iterations {BATCH * 6 / step_s:.3f} "
+          f"({step_s:.3f} s; per iteration {json.dumps([round(x, 4) for x in times])} s); the loop waited "
+          f"{source_wait:.3f} s on the source loader and {unlabeled_wait:.3f} s on the unlabeled one", flush=True)
+    print(f"train CLI saves (s): {json.dumps([(n, round(s, 3)) for n, s in run['saves'] + runs[1]['saves']])}; "
+          f"checkpoint bytes {json.dumps(sizes)}", flush=True)
+
+    # the loaders alone at the real Pap window: 1000-px windows of the serving
+    # phase's synthetic slides, resized to MIN_SIZE_TRAIN 800 on the 1024 canvas
+    windows = PapDataset(eval_ds.slides, eval_ds.annotations, win_size=1000, overlap=0.0, is_train=True)
+    patches = PapUnlabeledDataset([s[:1000, :1000] for s in eval_ds.slides])
+    rates, first = {}, {}
+    for what, it in (("source", make_source_loader(windows, BATCH, CANVAS, max_gt=EVAL_MAX_GT, min_size=800,
+                                                   max_size=CANVAS)),
+                     ("unlabeled", make_unlabeled_loader(patches, BATCH, CANVAS, 2, 1, min_size=800, max_size=CANVAS))):
+        t = time.perf_counter()
+        batches = [next(it) for _ in range(LOADER_BATCHES)]
+        rates[what] = LOADER_BATCHES / (time.perf_counter() - t)
+        if not all((b["image_size"] == 800).all() for b in batches):
+            raise AssertionError(f"{what} loader: image sizes {[b['image_size'].tolist() for b in batches]}")
+        first[what] = batches[0]
+    gt = first["source"]["gt_valid"].sum(1).tolist()
+    print(f"training loaders, one thread each, {LOADER_BATCHES} batches of {BATCH} 1000-px windows at MIN_SIZE_TRAIN "
+          f"800: source {rates['source']:.3f} batches/s, unlabeled (2 + 1 views) {rates['unlabeled']:.3f} batches/s, "
+          f"against {mt_images_per_s / BATCH:.3f} MT steps/s ({len(windows)} windows; gt an image of the first "
+          f"batch {gt})",
+          flush=True)
+    return warm, steps_alone, rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1183,11 +1350,13 @@ def main() -> int:
     phase("K3 roi_align backward vs plain", lambda: check_roi_align_backward(dev, stats))
     patches_per_s = phase("flagship bf16", lambda: flagship(dev, stats))
     phase("flagship f32 vs plain", lambda: flagship_f32_vs_plain(dev))
-    eval_timing = phase("eval bf16", lambda: eval_path(dev, stats))
+    eval_timing, eval_ds = phase("eval bf16", lambda: eval_path(dev, stats))
     images_per_s = phase("train bf16", lambda: train_path(dev, stats))
     phase("train f32 vs plain", lambda: train_f32_vs_plain(dev))
     mt_images_per_s, mt_peak_gib = phase("mt bf16", lambda: mt_path(dev, stats))
     phase("mt f32 vs plain", lambda: mt_f32_vs_plain(dev))
+    loop_images_per_s, steps_alone, loader_rates = phase(
+        "train CLI bf16", lambda: train_cli_path(dev, stats, images_per_s, mt_images_per_s, eval_ds))
     print(f"throughput: {patches_per_s:.3f} patches/s at {CANVAS}px, batch {BATCH}, bf16 on {card}", flush=True)
     print(f"eval throughput: {eval_timing['images_per_sec']} evaluated patches/s at {CANVAS}px, batch {BATCH}, bf16, "
           f"host paste and Papeval included, scored serially; stage_seconds "
@@ -1196,6 +1365,9 @@ def main() -> int:
           flush=True)
     print(f"mt throughput: {mt_images_per_s:.3f} labeled images/s ({BATCH} labeled + {BATCH} unlabeled a step), "
           f"peak memory {mt_peak_gib:.3f} GiB at {CANVAS}px, bf16 on {card}", flush=True)
+    print(f"train CLI throughput: {loop_images_per_s:.3f} labeled images/s in the loop's warm iterations at "
+          f"{CANVAS}px, batch {BATCH}, bf16, against {steps_alone:.3f} for its steps alone; loaders at 1000-px "
+          f"windows {json.dumps(loader_rates)} batches/s on {card}", flush=True)
     print(json.dumps({"kernels": [stats["nms"], stats["roi_align"], stats["roi_align_backward"]]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

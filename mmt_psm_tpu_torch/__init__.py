@@ -7,7 +7,10 @@ the test-time graph through the hand-written kernels in ``csrc/``.
 ``Trainer.step(batch)`` runs the supervised train step.
 ``engine.inference.run_inference`` evaluates a model over test batches
 (host paste and Papeval), and ``python -m mmt_psm_tpu_torch.tools.test_net``
-sweeps a directory of checkpoints.
+sweeps a directory of checkpoints. ``python -m
+mmt_psm_tpu_torch.tools.train_mean_teacher`` trains the flagship with the
+mean teacher through the host loop ``engine.trainer.MTTrainer``, with
+checkpoints and resume.
 
 The names below load ``models`` (and torch) at first use, so the host eval
 modules (``evaluation``, ``engine.paste``, ``engine._eval_worker``) import

@@ -3,8 +3,9 @@ mean-teacher training paths.
 
 The keys of the JAX package's ``config/defaults.py`` (which mirrors the
 reference's yacs key space, maskrcnn_benchmark/config/defaults.py) that
-the port's ``ModelConfig.from_cfg``, its optimizer, ``MTConfig.from_cfg``
-and the test CLI (``tools/test_net.py``) read, with the same defaults, so
+the port's ``ModelConfig.from_cfg``, its optimizer, ``MTConfig.from_cfg``,
+the training loop (``engine/trainer.py``) and the two CLIs
+(``tools/test_net.py``, ``tools/train_mean_teacher.py``) read, with the same defaults, so
 ``configs/pap/*.yaml`` merges unchanged; the whole MT block is copied, so
 a YAML that is silent on a key (ODKD, FFI, PLTRAIN, ...) gets the JAX
 default. Other keys in a YAML merge in as plain values.
@@ -22,6 +23,7 @@ def get_cfg() -> ConfigNode:
     C.MODEL.MASK_ON = False
 
     C.INPUT = ConfigNode()
+    C.INPUT.MIN_SIZE_TRAIN = 800
     C.INPUT.MIN_SIZE_TEST = 800
     C.INPUT.MAX_SIZE_TEST = 1333
     # BGR 0-255 pixel normalization (reference config/defaults.py:48-52)
@@ -29,14 +31,18 @@ def get_cfg() -> ConfigNode:
     C.INPUT.PIXEL_STD = [1.0, 1.0, 1.0]
 
     C.DATASETS = ConfigNode()
+    C.DATASETS.TRAIN = ()
     C.DATASETS.TEST = ()
     C.DATASETS.VAL = ("papnuclei_val",)
+    C.DATASETS.GEN = ("papnuclei_no_label",)
     C.DATASETS.MODE_IN_TEST = "val"
+    # train with the unlabeled split (DATASETS.GEN) past MT.START_MT
+    C.DATASETS.NO_LABEL = True
 
     C.DATALOADER = ConfigNode()
     C.DATALOADER.SIZE_DIVISIBILITY = 0
-    # test batches assembled ahead in a background thread (data/loader.py
-    # prefetch): 0 synchronous, -1 auto (2 with a spare core)
+    # train and test batches assembled ahead in a background thread
+    # (data/loader.py prefetch): 0 synchronous, -1 auto (2 with a spare core)
     C.DATALOADER.PREFETCH_DEPTH = -1
 
     C.MODEL.BACKBONE = ConfigNode()
@@ -170,8 +176,10 @@ def get_cfg() -> ConfigNode:
     C.SOLVER.WARMUP_FACTOR = 1.0 / 3
     C.SOLVER.WARMUP_ITERS = 500
     C.SOLVER.WARMUP_METHOD = "linear"
+    C.SOLVER.CHECKPOINT_PERIOD = 500
     # 0 disables; > 0 clips the global gradient norm
     C.SOLVER.CLIP_GRAD_NORM = 0.0
+    C.SOLVER.IMS_PER_BATCH = 4
 
     C.TEST = ConfigNode()
     # (metric path, mean, std) rows checked by engine.inference.check_expected_results
@@ -191,4 +199,12 @@ def get_cfg() -> ConfigNode:
     C.TPU.IMAGE_SIZE = 1024
     C.TPU.MAX_GT = 64
     C.TPU.COMPUTE_DTYPE = "bfloat16"
+    # devices of the data-parallel mesh, -1 all of them: the port's loop
+    # runs on one device (engine/trainer.py)
+    C.TPU.MESH_SHAPE = (-1,)
+    # a torch.profiler trace of iterations [PROFILE_START, PROFILE_START +
+    # PROFILE_STEPS) is written into PROFILE_DIR; empty: off
+    C.TPU.PROFILE_DIR = ""
+    C.TPU.PROFILE_START = 5
+    C.TPU.PROFILE_STEPS = 3
     return C

@@ -5,7 +5,8 @@ The port keeps its own copy of the JAX package's ``config/node.py`` so it
 imports nothing of that package. PyYAML is not a dependency of the port:
 ``load_yaml`` reads block mappings nested by indentation, ``key: value``
 scalars, flow lists ``[a, b]`` and ``#`` comments, which is all
-``configs/pap/*.yaml`` holds.
+``configs/pap/*.yaml`` holds; ``ConfigNode.dump`` writes a tree in that
+subset (the train CLI's ``config.yaml``).
 """
 
 from __future__ import annotations
@@ -55,6 +56,36 @@ class ConfigNode(dict):
             for p in parts[:-1]:
                 node = node[p]
             node[parts[-1]] = _coerce(value, node.get(parts[-1], None))
+
+    def dump(self) -> str:
+        """The tree as YAML, keys sorted as the JAX package's ``yaml.safe_dump``
+        sorts them, strings quoted and sequences as flow lists: what
+        ``load_yaml`` (and PyYAML) read back."""
+        return "".join(_dump_lines(self, 0))
+
+
+def _dump_lines(node: dict, indent: int):
+    for k in sorted(node):
+        v = node[k]
+        if isinstance(v, dict):
+            yield f"{' ' * indent}{k}:\n"
+            yield from _dump_lines(v, indent + 2)
+        else:
+            yield f"{' ' * indent}{k}: {_dump_value(v)}\n"
+
+
+def _dump_value(v: Any) -> str:
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_value(x) for x in v) + "]"
+    if isinstance(v, str):
+        if "'" in v or "," in v:
+            raise ValueError(f"cannot write {v!r} in the YAML subset")
+        return f"'{v}'"
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    return repr(v)
 
 
 def _coerce(value: Any, current: Any) -> Any:

@@ -2,11 +2,12 @@
 synthetic entries of ``mmt_psm_tpu/data/catalog.py``, after the
 reference's paths catalog, maskrcnn_benchmark/config/paths_catalog.py).
 
-The pap splits map to ``PapDataset`` over an on-disk layout under
+The labeled pap splits map to ``PapDataset`` over an on-disk layout under
 DATA_DIR (``pap/<split>/images/*.png`` and
-``pap/<split>/masks/<image>/<instance>_<label>.png``); ``synthetic_*``
-give a self-contained set. The COCO-format entries, and several names
-concatenated, wait for ROADMAP item 20; the unlabeled split for item 27.
+``pap/<split>/masks/<image>/<instance>_<label>.png``), the unlabeled one
+to ``PapUnlabeledDataset`` over ``pap/no_label/*.png`` (and ``*.jpg``);
+``synthetic_*`` give a self-contained set. The COCO-format entries, and
+several names concatenated, wait for ROADMAP item 20.
 """
 
 from __future__ import annotations
@@ -51,7 +52,12 @@ class DatasetCatalog:
             kw = {k: v for k, v in attrs.items() if k not in ("seed", "is_train")}
             return synthetic_slide_dataset(seed=attrs.get("seed", 0), is_train=attrs.get("is_train", True), **kw)
         if factory == "PapUnlabeledDataset":
-            raise NotImplementedError(f"the unlabeled pap split ({name!r}) is not ported yet (ROADMAP item 27)")
+            from .pap import PapUnlabeledDataset
+
+            root = os.path.join(cls.DATA_DIR, "pap", attrs["split"])
+            patches = sorted(os.path.join(root, f) for f in os.listdir(root)
+                             if f.endswith((".png", ".jpg"))) if os.path.isdir(root) else []
+            return PapUnlabeledDataset(patches)
         if factory != "PapDataset":
             raise NotImplementedError(f"{factory} datasets ({name!r}) are not ported yet (ROADMAP item 20)")
         return cls._pap_from_disk(attrs)

@@ -1,14 +1,22 @@
-"""Test-time batch assembly on the host (the port's copy of the test-time
-part of ``mmt_psm_tpu/data/loader.py``, after the reference's DataLoader
-and collator, maskrcnn_benchmark/data/build.py:143-318 and
-collate_batch.py:5-76).
+"""Batch assembly on the host (the port's copy of
+``mmt_psm_tpu/data/loader.py`` without its TTA loader, after the
+reference's DataLoader and collators, maskrcnn_benchmark/data/build.py:
+143-318 and collate_batch.py:5-76).
 
-``make_test_loader`` yields fixed-shape batches: each image top-left on a
-square canvas, gt padded to MAX_GT rows (masks ragged, as only the host
-reads them), the last batch padded by repeating its last sample with
-``n_real`` counting the real ones. ``prefetch`` assembles batches ahead in
-a background thread. The training loaders are not here yet (ROADMAP
-item 27).
+Every batch is fixed-shape numpy: each image top-left on a square canvas,
+gt padded to MAX_GT rows.
+
+* ``make_source_loader``: endless labeled training batches through
+  ``source_transform``, a fresh permutation of the dataset each pass, full
+  batches only (the reference's IterationBasedBatchSampler cycling);
+* ``make_unlabeled_loader``: endless mean-teacher batches of one shared
+  geometric transform a patch and AUG_K teacher + AUG_S student colour
+  views (BatchCollatorWoLabelK, collate_batch.py:58-76);
+* ``make_test_loader``: one pass, masks ragged (only the host reads them),
+  the last batch padded by repeating its last sample with ``n_real``
+  counting the real ones.
+
+``prefetch`` assembles batches ahead in a background thread.
 """
 
 from __future__ import annotations
@@ -75,6 +83,77 @@ def _stack(batch_list):
         # ragged entries (unpadded eval masks) stay a python list
         out[k] = np.stack(vals) if len(shapes) == 1 else vals
     return out
+
+
+def make_source_loader(
+    dataset,
+    batch_size: int,
+    canvas: int,
+    max_gt: int = 64,
+    mask_size: int | None = None,
+    min_size: int = 800,
+    max_size: int = 1333,
+    seed: int = 0,
+    num_iterations: int | None = None,
+    shuffle: bool = True,
+):
+    """Endless (or ``num_iterations``) labeled training batches:
+    ``image`` f32 [B, canvas, canvas, 3] normalized BGR, ``boxes``,
+    ``labels``, ``gt_valid``, ``masks`` u8 [B, MAX_GT, m, m] and
+    ``image_size``; every draw from one generator seeded with ``seed``."""
+    rng = np.random.default_rng(seed)
+
+    def gen():
+        it = 0
+        while num_iterations is None or it < num_iterations:
+            order = rng.permutation(len(dataset)) if shuffle else np.arange(len(dataset))
+            for start in range(0, len(order) - batch_size + 1, batch_size):
+                samples = []
+                for idx in order[start : start + batch_size]:
+                    s = T.source_transform(dataset[int(idx)], rng, min_size, max_size)
+                    samples.append(pad_to_canvas(s, canvas, max_gt, mask_size))
+                yield _stack(samples)
+                it += 1
+                if num_iterations is not None and it >= num_iterations:
+                    return
+
+    return gen()
+
+
+def make_unlabeled_loader(
+    dataset,
+    batch_size: int,
+    canvas: int,
+    aug_k: int = 2,
+    aug_s: int = 1,
+    min_size: int = 800,
+    max_size: int = 1333,
+    seed: int = 1,
+):
+    """Endless unlabeled batches: ``t_images`` f32 [B, AUG_K, canvas,
+    canvas, 3] (the teacher's views), ``s_images`` [B, AUG_S, ...] (the
+    student's), normalized BGR, and ``image_size`` [B, 2]."""
+    rng = np.random.default_rng(seed)
+    k_total = aug_k + aug_s
+
+    def gen():
+        while True:
+            order = rng.permutation(len(dataset))
+            for start in range(0, len(order) - batch_size + 1, batch_size):
+                t_views, s_views, sizes = [], [], []
+                for idx in order[start : start + batch_size]:
+                    views = T.unlabeled_transform({"image": dataset[int(idx)]}, rng, k_total, min_size, max_size)
+                    h, w = views[0].shape[:2]
+                    padded = np.zeros((k_total, canvas, canvas, 3), np.float32)
+                    for c, v in zip(padded, views):
+                        c[:h, :w] = v
+                    t_views.append(padded[:aug_k])
+                    s_views.append(padded[aug_k:])
+                    sizes.append([h, w])
+                yield {"t_images": np.stack(t_views), "s_images": np.stack(s_views),
+                       "image_size": np.asarray(sizes, np.int32)}
+
+    return gen()
 
 
 def make_test_loader(

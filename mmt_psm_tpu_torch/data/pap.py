@@ -14,8 +14,8 @@ instance bitmasks:
 A slide is anything indexable as an RGB array: a numpy array, a path to
 an image file (PIL, imported only there) or an OpenSlide handle.
 ``synthetic_slide_dataset`` builds slides from the synthetic cells of
-``data/synthetic.py``. The unlabeled dataset is not here yet (ROADMAP
-item 27).
+``data/synthetic.py``. ``PapUnlabeledDataset`` holds the loose unlabeled
+patches of the mean teacher.
 """
 
 from __future__ import annotations
@@ -264,6 +264,26 @@ class PapDataset:
             "labels": labels,
             "masks": np.stack(masks).astype(np.uint8) if masks else np.zeros((0, self.win_size, self.win_size), np.uint8),
         }
+
+
+class PapUnlabeledDataset:
+    """Loose unlabeled patches (reference PapNucleiUnlabelDataset,
+    Pap.py:762-866): each item is one RGB patch, an array or an image file;
+    the loader makes its K + S views."""
+
+    def __init__(self, patches: Sequence):
+        self.patches = list(patches)
+
+    def __len__(self):
+        return len(self.patches)
+
+    def __getitem__(self, i) -> np.ndarray:
+        p = self.patches[i]
+        if isinstance(p, np.ndarray):
+            return p[..., :3]
+        from PIL import Image
+
+        return np.asarray(Image.open(p).convert("RGB"))
 
 
 def synthetic_slide_dataset(seed: int = 0, num_slides: int = 2, slide_size: int = 512, win_size: int = 256, overlap: float = 0.5, is_train: bool = True, train_ratio: float = 1.0, num_cells: tuple = (8, 16), radius_range: tuple = (0.08, 0.18)):

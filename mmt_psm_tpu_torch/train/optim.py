@@ -39,6 +39,14 @@ def warmup_multistep_factor(step: int, steps, gamma: float = 0.1, warmup_factor:
     return wf * gamma ** sum(step >= s for s in steps)
 
 
+def schedule_factor(cfg):
+    """The SOLVER block's factor on the base learning rate, a function of
+    the step."""
+    s = cfg.SOLVER
+    steps = tuple(int(x) for x in s.STEPS)
+    return lambda i: warmup_multistep_factor(i, steps, s.GAMMA, s.WARMUP_FACTOR, s.WARMUP_ITERS, s.WARMUP_METHOD)
+
+
 def make_optimizer(model: torch.nn.Module, cfg):
     """(SGD over the trainable parameters in a weight group and a bias
     group, its LambdaLR schedule) from the SOLVER block."""
@@ -51,11 +59,7 @@ def make_optimizer(model: torch.nn.Module, cfg):
          "weight_decay": s.WEIGHT_DECAY_BIAS},
     ]
     opt = torch.optim.SGD(groups, lr=s.BASE_LR, momentum=s.MOMENTUM)
-    steps = tuple(int(x) for x in s.STEPS)
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lambda i: warmup_multistep_factor(i, steps, s.GAMMA, s.WARMUP_FACTOR, s.WARMUP_ITERS, s.WARMUP_METHOD)
-    )
-    return opt, sched
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule_factor(cfg))
 
 
 def clip_tensors(model: torch.nn.Module) -> list:

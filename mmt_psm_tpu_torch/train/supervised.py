@@ -44,6 +44,9 @@ class Trainer:
         self.clip_tensors = clip_tensors(model)
         self.trainable = [p for p in model.parameters() if p.requires_grad]
         self.iteration = 0
+        # the last step's global gradient norm where the step clips (a tensor,
+        # never read here): the training loop reads it with the losses
+        self.grad_norm = None
         self.mt = MTConfig.from_cfg(cfg)
         self.teacher = teacher
         # the reference EMAs the teacher only when lambda > 0, past
@@ -81,7 +84,7 @@ class Trainer:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             if self.max_norm > 0:
-                clip_grad_norm_(self.clip_tensors, self.max_norm)
+                self.grad_norm = clip_grad_norm_(self.clip_tensors, self.max_norm)
             self.optimizer.step()
             self.scheduler.step()
             if self.teacher is not None and self.ema_start is not None and self.iteration > self.ema_start:

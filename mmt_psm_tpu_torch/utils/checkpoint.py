@@ -10,6 +10,16 @@ nested dicts and lists; the model's weights sit under ``"model"`` as its
 ``state_dict`` in maskrcnn-benchmark names, as the reference's checkpoints
 hold them. Students are saved as ``model_<iteration:07d>`` (and
 ``model_final``), teachers as ``t_model_*`` (MTtrainer.py:231-239).
+
+``training_state`` is a train step object's resume payload (the JAX
+``engine/trainer.py:168-178`` saves params, opt_state, step and teacher):
+the student's ``state_dict`` under ``"model"``, the optimizer's and the
+LambdaLR's ``state_dict``, ``Trainer.iteration``, the teacher's
+``state_dict`` and the step generator's state. The generator is there
+because JAX derives each step's draws from a fixed key and the step, while
+a ``torch.Generator`` advances with every draw: without its state a resumed
+run would draw other dropout masks and samples than a straight one.
+``restore_training_state`` loads such a payload back in place.
 """
 
 from __future__ import annotations
@@ -70,6 +80,36 @@ def _write_atomic(path: str, write) -> None:
     with open(tmp, "wb") as f:
         write(f)
     os.replace(tmp, path)
+
+
+def training_state(trainer) -> dict:
+    """The resume payload of a ``train.Trainer`` (or ``MTTrainer``)."""
+    return {
+        "model": trainer.model.state_dict(),
+        "optimizer": trainer.optimizer.state_dict(),
+        "scheduler": trainer.scheduler.state_dict(),
+        "iteration": trainer.iteration,
+        "teacher": trainer.teacher.state_dict() if trainer.teacher is not None else None,
+        "generator": trainer.gen.get_state(),
+    }
+
+
+def restore_training_state(trainer, state: dict) -> None:
+    """Load a ``training_state`` payload into ``trainer`` in place.
+
+    ``load_state_dict`` copies into the existing tensors (never
+    ``assign=True``): ``Trainer.clip_tensors``, ``trainable``, ``ema_pairs``
+    and the optimizer hold references to them. The optimizer is loaded after
+    the model; the LambdaLR's ``last_epoch`` (the learning rate's count) and
+    ``Trainer.iteration`` (the MT gate's, the ramp's and the EMA's) both come
+    back."""
+    trainer.model.load_state_dict(state["model"])
+    if trainer.teacher is not None:
+        trainer.teacher.load_state_dict(state["teacher"])
+    trainer.optimizer.load_state_dict(state["optimizer"])
+    trainer.scheduler.load_state_dict(state["scheduler"])
+    trainer.iteration = int(state["iteration"])
+    trainer.gen.set_state(state["generator"])
 
 
 def load_model_weights(model: torch.nn.Module, state: dict) -> None:

@@ -9,6 +9,7 @@ On a GPU host: ``python -m pytest tests/test_torch_port_cuda.py -m gpu --noconft
 """
 
 import math
+import os
 
 import pytest
 import torch
@@ -356,3 +357,30 @@ def test_device_stage_launches_without_a_sync(dev):
         np.testing.assert_array_equal(got[3], d.valid.cpu().numpy())
         np.testing.assert_array_equal(got[0], d.boxes.cpu().numpy())
         np.testing.assert_array_equal(got[4], d.masks.half().cpu().numpy())
+
+
+def test_train_cli_on_the_card(dev, tmp_path):
+    """The train CLI on the card at a 256 canvas (``--synthetic --skip-test``,
+    batch 2, START_MT 1): its loop launches K1, K2 and K3 as 2 supervised and
+    1 MT step make them, saves model_0000002 (and its teacher) and the final
+    checkpoints, logs finite losses; a second call resumes at iteration 3."""
+    from chip_smoke import MT_LAUNCHES
+    from mmt_psm_tpu_torch.tools.train_mean_teacher import main
+
+    counters = {"nms": N.suppress_cuda, "roi_align": P.multilevel_roi_align_cuda,
+                "roi_align_backward": P.multilevel_roi_align_backward_cuda}
+    sup = {"nms": 1, "roi_align": 2, "roi_align_backward": 2}
+    out = str(tmp_path / "run")
+    argv = ["--synthetic", "--skip-test", "--output-dir", out, "TPU.IMAGE_SIZE", "256", "SOLVER.IMS_PER_BATCH", "2",
+            "MT.START_MT", "1", "SOLVER.CHECKPOINT_PERIOD", "2"]
+    before = {k: fn.launches for k, fn in counters.items()}
+    res = main(argv + ["SOLVER.MAX_ITER", "3"])
+    launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+    assert launched == {k: 2 * sup[k] + MT_LAUNCHES[k] for k in sup}
+    assert sorted(os.listdir(out)) == ["config.yaml", "last_checkpoint", "log.txt", "model_0000002.pth",
+                                       "model_final.pth", "t_model_0000002.pth", "t_model_final.pth"]
+    meters = res["trainer"].meters.meters
+    assert len(meters["loss_total"].deque) == 3 and len(meters["mt_weight"].deque) == 1
+    assert all(math.isfinite(x) for m in meters.values() for x in m.deque)
+    res = main(argv + ["SOLVER.MAX_ITER", "4"])
+    assert res["start_iter"] == 3 and res["trainer"].steps.iteration == 4

@@ -146,10 +146,9 @@ def test_catalog_synthetic_and_disk_identical(tmp_path, monkeypatch):
         assert_same(ours[i], theirs[i], f"item {i}")
 
 
-@pytest.mark.parametrize("names", ["cell_coco_val", "coco_foo", ("synthetic_val", "synthetic_train"),
-                                   "papnuclei_no_label"])
+@pytest.mark.parametrize("names", ["cell_coco_val", "coco_foo", ("synthetic_val", "synthetic_train")])
 def test_catalog_entries_not_ported_raise(names):
-    with pytest.raises(NotImplementedError, match="ROADMAP item (20|27)"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
         cat.build_datasets(names)
     with pytest.raises(KeyError):
         cat.DatasetCatalog.get("no_such_dataset")

@@ -40,6 +40,9 @@ def test_import_guard_no_jax():
                "engine._eval_worker", "engine.inference", "engine.predictor", "data.transforms", "data.loader",
                "data.pap", "data.catalog", "utils.checkpoint", "tools.test_net")
     assert set(serving) <= set(lines["SERVING"].split(","))
+    training = ("engine.trainer", "tools.train_mean_teacher", "utils.c2_loading", "utils.model_serialization",
+                "utils.logger", "utils.metric_logger")
+    assert set(training) <= set(lines["SERVING"].split(","))
 
 
 def test_eval_worker_imports_without_torch():

@@ -233,3 +233,15 @@ def port_grad_of(name: str, flat_grads, pooled_chw=(256, 7, 7)):
 
     key, kind = flax_key(name)
     return np.array(_to_torch_layout(kind, key, np.asarray(flat_grads[key]), pooled_chw))
+
+
+# yacs overrides that cut the flagship's training run to the CPU tests'
+# size: a 128 canvas in float32, one image a batch, 64 proposals and sampled
+# RoIs, 8 gt rows, relation-NMS over the first 16 boxes of a class (32
+# detections an image, the teacher's pseudo-labels among them)
+TRAIN_OPTS = ["TPU.IMAGE_SIZE", "128", "TPU.COMPUTE_DTYPE", "float32", "TPU.MAX_GT", "8",
+              "SOLVER.IMS_PER_BATCH", "1", "MODEL.RPN.PRE_NMS_TOP_N_TRAIN", "64",
+              "MODEL.RPN.POST_NMS_TOP_N_TRAIN", "64", "MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN", "64",
+              "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "64", "MODEL.RPN.PRE_NMS_TOP_N_TEST", "64",
+              "MODEL.RPN.POST_NMS_TOP_N_TEST", "64", "MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", "64",
+              "MODEL.RELATION_NMS.FIRST_N", "16", "MODEL.RELATION_NMS.TOPK", "16"]
