@@ -84,19 +84,42 @@ line is printed):
      phases 8 and 10, the seconds it waited on each loader, each
      save's seconds and the checkpoints' bytes; then each training loader's
      batches/s over 3 batches of 1000-px windows at MIN_SIZE_TRAIN 800;
- 13. a ``{"kernels": [...]}`` line with each kernel's time over its calls
+ 13. the model variants (``variants bf16``, ``mmt_psm_tpu_torch/models/
+     variants.py``: the plain Mask R-CNN with the greedy post-processor,
+     set-NMS, the mask relation module's CAM and extractor variants,
+     RPN_ONLY, R-50-C4, PRCNN, backbone recomputation), each at the
+     flagship's width (1024 canvas, bf16, batch 4, weights from seed 0):
+     a forward with its kernel calls recorded and one timed with
+     synchronising calls made errors, then a supervised step (the plain
+     Mask R-CNN: ``run_inference`` over the eval phase's windows scored
+     serially, 3 warm + 5 timed supervised steps, and 3 warm + 5 timed MT
+     steps whose teacher labels through the greedy post-processor; set-NMS
+     and RPN_ONLY also through ``run_inference``); K1, K2 and K3 launches
+     asserted per variant (``VARIANT_LAUNCHES``: C4's RPN K1 on 4 x 6000 at
+     test and 4 x 12,000 in training, its K2/K3 on one 1024-channel level;
+     PRCNN's K2/K3 on four f32 image scales at P25), every loss finite,
+     and every recorded kernel call held against its plain version and
+     timed;
+ 14. ``variants f32 vs plain``: each variant at batch 2 in f32, its
+     detections with the kernels and with the plain versions (valid,
+     labels and head_ids identical; boxes 5e-3, scores and masks 1e-3),
+     then one supervised step's losses (1e-4) and gradients (GRAD_RTOL of
+     their norm; with K3 alone swapped, K3_GRAD_RTOL, for C4 and PRCNN);
+ 15. a ``{"kernels": [...]}`` line with each kernel's time over its calls
      of one flagship forward (K1: the RPN's and relation-NMS's; K2: the box
      head's and the mask head's) or of one train step (K3: the box head's
      and the mask head's), its plain version's time and its bound on this
      card, K1's and K2's launches in the serving path under
      ``launches_eval``, the K1 and K2 numbers of the train step under ``*_train`` keys,
      every kernel's over the MT step's recorded calls under ``*_mt``
-     keys (plain times too) and its launches in the train CLI's loop under
-     ``launches_cli``, after lines with each call's own times. A
+     keys (plain times too), its launches in the train CLI's loop under
+     ``launches_cli`` and, under ``variants``, each variant's launches,
+     summed times, bound and error over its recorded calls, after lines
+     with each call's own times. A
      kernel's time is the device time of the kernels its wrapper launches
      (torch.profiler), without the host's time to launch them; a plain
      version's is CUDA events around it;
- 14. the throughput in patches/s, evaluated patches/s (the serving path
+ 16. the throughput in patches/s, evaluated patches/s (the serving path
      scored serially, with the host seconds of each of its stages; the
      pool's run and its start on a line of its own), images/s
      (supervised, MT and the train CLI's loop) and the training loaders'
@@ -123,9 +146,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BATCH, BATCHES, CANVAS = 4, 3, 1024
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
-# bf16 comparison: the same f32 sum in another order, rounded once to bf16
+# bf16 comparison: the same f32 sum in another order, rounded once to bf16;
+# f32: ATOL (the variants' calls: of the largest |value| where that passes 1)
 BF16_RTOL, ATOL = 2.0**-7, 1e-5
-# K3 f32: sums of up to a few hundred weighted cotangents per cell, in another order
+# K3 f32: sums of up to a few hundred weighted cotangents per cell, in another
+# order (the variants' calls: of the largest |gradient| where that passes 1)
 K3_F32_ATOL = 1e-4
 # the f32 train step with the kernels against the plain versions: the same
 # arithmetic with float32 sums in other orders (K3's among them).
@@ -496,9 +521,10 @@ def edge_boxes(dev):
     return torch.cat([border, other])
 
 
-def k3_against_plain(g, boxes, shapes, scales, p, sampling, what):
+def k3_against_plain(g, boxes, shapes, scales, p, sampling, what, scaled=False):
     """K3 launched twice (bit-identical) and held to its plain version;
-    returns the largest difference."""
+    returns the largest difference. ``scaled``: the f32 bound is
+    K3_F32_ATOL of the largest |gradient| where that passes 1."""
     from mmt_psm_tpu_torch.ops import pooler as Pm
 
     got = Pm.multilevel_roi_align_backward_cuda(g, boxes, shapes, scales, p, sampling)
@@ -517,7 +543,8 @@ def k3_against_plain(g, boxes, shapes, scales, p, sampling, what):
         ref = float(b.float().abs().max())
         # f32: the same sums as the plain index_add_, in another order;
         # bf16: that f32 sum rounded once, so one bf16 rounding step at most
-        ok = err <= K3_F32_ATOL if g.dtype == torch.float32 else err <= BF16_RTOL * ref
+        f32_atol = K3_F32_ATOL * max(1.0, ref) if scaled else K3_F32_ATOL
+        ok = err <= f32_atol if g.dtype == torch.float32 else err <= BF16_RTOL * ref
         if not ok:
             raise AssertionError(f"K3 {what} {g.dtype} level {lv}: max err {err} (max |ref| {ref})")
         worst = max(worst, err)
@@ -667,7 +694,9 @@ def own_instances_as_gt(model, ds, batch, canvas, max_gt):
 
     stage, items = DeviceStage(model), []
     for b in make_test_loader(ds, batch, canvas, max_gt=max_gt, min_size=canvas, max_size=canvas, raw_u8=True):
-        boxes, scores, labels, valid, masks = stage.fetch(stage.dispatch(b))
+        boxes, scores, labels, valid, masks, _ = stage.fetch(stage.dispatch(b))
+        if masks is None:  # a box-only model: each box filled, as the engine pastes it
+            masks = np.ones(boxes.shape[:2] + (1, 1), np.float32)
         for i in range(b["n_real"]):
             h, w = b["image_size"][i].tolist()
             gt = []
@@ -706,7 +735,7 @@ def first_image_host_eval(batch, outs):
     from mmt_psm_tpu_torch.engine.paste import detections_to_instseg, gt_to_instseg
     from mmt_psm_tpu_torch.evaluation.pap_eval import PapEvaluator
 
-    boxes, scores, labels, valid, masks = outs
+    boxes, scores, labels, valid, masks, _ = outs
     dt = detections_to_instseg(boxes[0], scores[0], labels[0], valid[0], masks[0].astype(np.float32),
                                tuple(batch["image_size"][0].tolist()))
     gt = gt_to_instseg(batch["boxes"][0], batch["labels"][0], batch["gt_valid"][0], batch["masks"][0])
@@ -995,13 +1024,14 @@ def recording(calls):
 
 
 @torch.no_grad()
-def time_calls(calls):
+def time_calls(calls, scaled=False):
     """Per kernel: each recorded call held against its plain version on the
     same inputs (the tolerances of the phases above: K1's flags equal, K2
     ATOL + rtol |want|, K3 as ``k3_against_plain``), then the device ms of
     the recorded calls and CUDA-event ms of their plain versions, summed,
     the worst error, and the bound of them all (the same byte and operation
-    counts as the phases above)."""
+    counts as the phases above). ``scaled``: the f32 bounds of K2 and K3
+    grow with the largest |value| past 1."""
     from mmt_psm_tpu_torch.ops import nms as N
     from mmt_psm_tpu_torch.ops import pooler as Pm
 
@@ -1015,7 +1045,7 @@ def time_calls(calls):
             supp = N.suppress_cuda(bs, vs, th)
             bad = int((supp != N.suppress_plain(bs, vs, th)).sum())
             if bad:
-                raise AssertionError(f"K1 MT call {shape}: {bad} flags differ from the plain version")
+                raise AssertionError(f"K1 recorded call {shape}: {bad} flags differ from the plain version")
             err = 0.0
             kept = (~supp & vs).float()
             ms = kernel_ms(lambda: N.suppress_cuda(*a), K1_KERNELS)
@@ -1028,8 +1058,11 @@ def time_calls(calls):
             e = (Pm.multilevel_roi_align_cuda(*a).float() - want).abs()
             rtol = BF16_RTOL if feats[0].dtype == torch.bfloat16 else 0.0
             err = float(e.max())
-            if not float((e - ATOL - rtol * want.abs()).max()) <= 0:
-                raise AssertionError(f"K2 MT call {shape} {feats[0].dtype}: max err {err}")
+            # ``scaled``: ATOL of the largest |value| where that passes 1 (PRCNN's
+            # image-scale f32 maps reach ~1e2, where 1e-5 is a few ulps)
+            atol = ATOL * max(1.0, float(want.abs().max())) if scaled else ATOL
+            if not float((e - atol - rtol * want.abs()).max()) <= 0:
+                raise AssertionError(f"K2 recorded call {shape} {feats[0].dtype}: max err {err}")
             del want, e
             ms = kernel_ms(lambda: Pm.multilevel_roi_align_cuda(*a), K2_KERNELS)
             c, es = feats[0].shape[-1], feats[0].element_size()
@@ -1039,7 +1072,7 @@ def time_calls(calls):
         else:
             grad, boxes, shapes, scales, p, g = a
             shape = f"{boxes.shape[0]} x {boxes.shape[1]} P{p}"
-            err = k3_against_plain(grad, boxes, shapes, scales, p, g, f"MT call {shape}")
+            err = k3_against_plain(grad, boxes, shapes, scales, p, g, f"recorded call {shape}", scaled)
             ms = kernel_ms(lambda: Pm.multilevel_roi_align_backward_cuda(*a), K3_KERNELS)
             es = grad.element_size()
             nbytes = grad.numel() * es + boxes.numel() * 5 + sum(math.prod(sh) for sh in shapes) * es
@@ -1048,7 +1081,7 @@ def time_calls(calls):
         acc = out.setdefault(key, [0.0, 0.0, 0, 0.0, 0.0])
         acc[0], acc[1], acc[2], acc[3] = acc[0] + ms, acc[1] + plain_ms, acc[2] + nbytes, acc[3] + ops
         acc[4] = max(acc[4], err)
-        per_call.append((key, shape, round(ms, 4), round(plain_ms, 3), err))
+        per_call.append((key, shape, round(ms, 4), round(plain_ms, 3), err, round(bound(nbytes, ops)["bound_ms"], 5)))
     return {k: (v[0], v[1], bound(v[2], v[3]), v[4]) for k, v in out.items()}, per_call
 
 
@@ -1131,7 +1164,7 @@ def mt_path(dev, stats):
           f"launches {launches}; teacher moved and differs from the student, {len(frozen)} frozen bit-unchanged, "
           f"{len(adaptor)} hint adaptor tensors moved; peak memory {peak_gib:.3f} GiB", flush=True)
     print("MT step's kernel calls, each held against its plain version (kernel, shape, kernel ms, plain ms, "
-          "max abs err): " + json.dumps(per_call), flush=True)
+          "max abs err, bound ms): " + json.dumps(per_call), flush=True)
     return MT_STEPS * BATCH / wall, peak_gib
 
 
@@ -1334,6 +1367,301 @@ def train_cli_path(dev, stats, sup_images_per_s, mt_images_per_s, eval_ds):
     return warm, steps_alone, rates
 
 
+# ------------------------------------------------------ the model variants
+# every graph of ModelConfig.from_cfg beside the flagship
+# (mmt_psm_tpu_torch/models/variants.py); per variant the kernel launches of
+# one forward and of one supervised step: K1 for the RPN and the greedy
+# post-processor (or relation-NMS), K2 for the box and mask heads (PRCNN:
+# the box head and its four image scales), K3 for each K2 call of training
+def _launches(nms, roi_align, roi_align_backward=0):
+    return {"nms": nms, "roi_align": roi_align, "roi_align_backward": roi_align_backward}
+
+
+VARIANT_LAUNCHES = {
+    "mask_rcnn_fpn": (_launches(2, 2), _launches(1, 2, 2)),
+    "set_nms": (_launches(1, 2), _launches(1, 2, 2)),
+    "mask_rel_cam": (_launches(2, 2), _launches(1, 2, 2)),
+    "mask_rel_same_size": (_launches(2, 2), _launches(1, 2, 2)),
+    "mask_rel_deep": (_launches(2, 2), _launches(1, 2, 2)),
+    "mask_rel_mask_feature": (_launches(2, 2), _launches(1, 2, 2)),
+    "mask_rel_same_predictor": (_launches(2, 2), _launches(1, 2, 2)),
+    "rpn_only": (_launches(1, 0), _launches(0, 0, 0)),
+    "mask_rcnn_c4": (_launches(2, 2), _launches(1, 2, 2)),
+    "prcnn": (_launches(2, 5), _launches(1, 5, 5)),
+    "remat": (_launches(2, 2), _launches(1, 2, 2)),
+}
+# variants whose forward goes through run_inference (the host filter of
+# set-NMS, the box-only paste of RPN_ONLY), besides the plain Mask R-CNN
+SERVED = ("mask_rcnn_fpn", "set_nms", "rpn_only")
+VARIANT_SUP_WARMUP, VARIANT_SUP_STEPS = 3, 5
+
+
+def _count(calls):
+    return {k: sum(key == k for key, _ in calls) for k in ("nms", "roi_align", "roi_align_backward")}
+
+
+def _reset_counters():
+    counters = {k: getattr(mod, attr) for k, (mod, attr, _) in kernel_wrappers().items()}
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def _variant_serve(name, model, eval_ds):
+    """``run_inference`` over the eval phase's windows, scored serially,
+    with the model's own instances as gt; its launches and stats."""
+    from mmt_psm_tpu_torch.data.loader import make_test_loader
+    from mmt_psm_tpu_torch.engine import inference as I
+
+    items = own_instances_as_gt(model, eval_ds, BATCH, CANVAS, EVAL_MAX_GT)
+    batches = make_test_loader(items, BATCH, CANVAS, max_gt=EVAL_MAX_GT, min_size=CANVAS, max_size=CANVAS,
+                               raw_u8=True)
+    counters = _reset_counters()
+    result, timing = I.run_inference(model, batches, eval_workers=0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n_batches = -(-len(items) // BATCH)
+    want = {k: v * n_batches for k, v in VARIANT_LAUNCHES[name][0].items()}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches} in run_inference over {n_batches} batches, expected {want}")
+    bad = {m: v for m, per in result.items() for v in per.values() if not math.isfinite(v)}
+    if bad or timing["images"] != len(items):
+        raise AssertionError(f"{name}: {timing['images']} images, non-finite stats {bad}")
+    scored(result, f"{name} run_inference")
+    return launches, result, timing
+
+
+def _variant_forward(name, model, x, sizes):
+    """One warm forward (its kernel calls recorded) and one timed forward
+    with synchronising calls made errors; the detections checked."""
+    calls = []
+    with recording(calls):
+        model(x, sizes)
+    torch.cuda.synchronize()
+    if _count(calls) != VARIANT_LAUNCHES[name][0]:
+        raise AssertionError(f"{name}: kernel calls in a forward {_count(calls)}, "
+                             f"expected {VARIANT_LAUNCHES[name][0]}")
+    counters = _reset_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        d = model(x, sizes)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if launches != VARIANT_LAUNCHES[name][0]:
+        raise AssertionError(f"{name}: launches in the timed forward {launches}")
+    for f in ("boxes", "scores", "masks"):
+        v = getattr(d, f)
+        if v is not None and not torch.isfinite(v).all():
+            raise AssertionError(f"{name}: non-finite {f}")
+    if not bool(d.valid.any()):
+        raise AssertionError(f"{name}: no valid detection")
+    c = model.config
+    if (d.masks is None) != (not c.mask_on) or (d.head_ids is None) != (c.nms_type != "set"):
+        raise AssertionError(f"{name}: masks {d.masks is not None}, head_ids {d.head_ids is not None}")
+    return calls, wall, launches, d
+
+
+def _variant_train(name, trainer, batches, warmup, steps):
+    """Supervised steps: ``warmup`` untimed (the last one's kernel calls
+    recorded), then ``steps`` timed; launches counted over the timed ones."""
+    calls = []
+    for i in range(warmup):
+        with recording(calls) if i == warmup - 1 else contextlib.nullcontext():
+            trainer.step(batches[i % len(batches)])
+    torch.cuda.synchronize()
+    if _count(calls) != VARIANT_LAUNCHES[name][1]:
+        raise AssertionError(f"{name}: kernel calls in a train step {_count(calls)}, "
+                             f"expected {VARIANT_LAUNCHES[name][1]}")
+    counters = _reset_counters()
+    t = time.perf_counter()
+    outs = [trainer.step(batches[i % len(batches)]) for i in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {k: v * steps for k, v in VARIANT_LAUNCHES[name][1].items()}
+    if launches != want:
+        raise AssertionError(f"{name}: launches in {steps} train steps {launches}, expected {want}")
+    losses = {k: float(v) for k, v in outs[-1].items()}
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{name}: non-finite losses {losses}")
+    return calls, wall, launches, losses
+
+
+def _variant_mt(trainer, dev):
+    """The MT step of the plain Mask R-CNN: its teacher's pseudo-labels come
+    from the greedy post-processor. VARIANT_SUP_WARMUP warm-up and MT_STEPS
+    timed steps from START_MT + 1; MT_LAUNCHES a step."""
+    from mmt_psm_tpu_torch.data.synthetic import (batch_to_torch, generate_batch, generate_unlabeled_batch,
+                                                  unlabeled_to_torch)
+
+    mt = trainer.mt
+    max_gt = int(trainer.cfg.TPU.MAX_GT)
+    labeled = [batch_to_torch(generate_batch(s, BATCH, image_size=CANVAS, max_instances=max_gt), dev) for s in range(2)]
+    unlabeled = [unlabeled_to_torch(generate_unlabeled_batch(10 + s, BATCH, image_size=CANVAS, aug_k=mt.aug_k,
+                                                             aug_s=mt.aug_s, max_instances=max_gt), dev)
+                 for s in range(2)]
+    trainer.iteration = mt.start_mt + 1
+    calls = []
+    for i in range(VARIANT_SUP_WARMUP):
+        with recording(calls) if i == VARIANT_SUP_WARMUP - 1 else contextlib.nullcontext():
+            trainer.step(labeled[i % 2], unlabeled[i % 2])
+    torch.cuda.synchronize()
+    if _count(calls) != MT_LAUNCHES:
+        raise AssertionError(f"mask_rcnn_fpn: kernel calls in one MT step {_count(calls)}, expected {MT_LAUNCHES}")
+    counters = _reset_counters()
+    t = time.perf_counter()
+    outs = [trainer.step(labeled[i % 2], unlabeled[i % 2]) for i in range(MT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if launches != {k: v * MT_STEPS for k, v in MT_LAUNCHES.items()}:
+        raise AssertionError(f"mask_rcnn_fpn: launches in {MT_STEPS} MT steps {launches}")
+    losses = {k: float(v) for k, v in outs[-1].items()}
+    if not all(math.isfinite(v) for v in losses.values()) or not {"mt_classifier", "mt_fg_loss"} <= set(losses):
+        raise AssertionError(f"mask_rcnn_fpn MT losses {losses}")
+    return calls, MT_STEPS * BATCH / wall, launches, losses
+
+
+def variants_path(dev, stats, eval_ds):
+    """Every variant at the flagship's width (1024 canvas, bf16, batch 4,
+    weights from seed 0): forwards, supervised steps and, for the plain Mask
+    R-CNN, serving and MT steps; each kernel call of one forward and one
+    step held against its plain version and timed."""
+    from mmt_psm_tpu_torch.data.synthetic import batch_to_torch, generate_batch
+    from mmt_psm_tpu_torch.models.detector import model_from_cfg
+    from mmt_psm_tpu_torch.models.variants import VARIANTS, variant_config
+    from mmt_psm_tpu_torch.train import build_mt_trainer, build_trainer
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(BATCH, CANVAS, CANVAS, 3, generator=gen, device=dev) * 40.0
+    sizes = torch.tensor([[CANVAS, CANVAS], [CANVAS, 900], [800, CANVAS], [700, 650]], dtype=torch.int32).to(dev)
+    batches = [batch_to_torch(generate_batch(s, BATCH, image_size=CANVAS, max_instances=64), dev) for s in range(2)]
+    rates, per_call_all = {}, {}
+    for name in VARIANTS:
+        t_v = time.perf_counter()
+        path, opts = VARIANTS[name]
+        model = model_from_cfg(variant_config(name), dev, seed=0)
+        calls, fwd_s, fwd_launches, d = _variant_forward(name, model, x, sizes)
+        row = {"patches_per_s": BATCH / fwd_s, "valid_per_image": [int(v) for v in d.valid.sum(1)]}
+        if name in SERVED:
+            serve_launches, result, timing = _variant_serve(name, model, eval_ds)
+            row.update(evaluated_patches_per_s=timing["images_per_sec"], AJI=result["AJI"], mAP=result["mAP"]["all"])
+            fwd_launches = {k: fwd_launches[k] + serve_launches[k] for k in fwd_launches}
+        del model, d
+        plain_mask = name == "mask_rcnn_fpn"
+        trainer = build_trainer(path, device=dev, seed=0, opts=opts)
+        warm, steps = (VARIANT_SUP_WARMUP, VARIANT_SUP_STEPS) if plain_mask else (1, 1)
+        t_calls, train_s, train_launches, losses = _variant_train(name, trainer, batches, warm, steps)
+        row.update(images_per_s=steps * BATCH / train_s, losses=losses)
+        del trainer
+        launches = {k: fwd_launches[k] + train_launches[k] for k in fwd_launches}
+        calls += t_calls
+        if plain_mask:
+            mt_trainer = build_mt_trainer(path, device=dev, seed=0, opts=opts)
+            m_calls, mt_rate, mt_launches, mt_losses = _variant_mt(mt_trainer, dev)
+            del mt_trainer
+            row.update(mt_images_per_s=mt_rate, mt_losses=mt_losses)
+            launches = {k: launches[k] + mt_launches[k] for k in launches}
+            calls += m_calls
+        timed, per_call = time_calls(calls, scaled=True)
+        del calls, t_calls
+        for k, (ms, plain_ms, b, err) in timed.items():
+            stats[k].setdefault("variants", {})[name] = dict(
+                launches=launches[k], ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                max_abs_err=err)
+        for k in launches:  # a kernel the variant never launches
+            if launches[k] == 0 and k not in timed:
+                stats[k].setdefault("variants", {})[name] = dict(launches=0)
+        per_call_all[name] = per_call
+        rates[name] = row
+        torch.cuda.empty_cache()
+        print(f"variant {name} bf16 ({time.perf_counter() - t_v:.1f} s): {json.dumps(row)}; launches {launches}",
+              flush=True)
+    print("variants' kernel calls, each held against its plain version (kernel, shape, kernel ms, plain ms, "
+          "max abs err, bound ms): " + json.dumps(per_call_all), flush=True)
+    return rates
+
+
+# the f32 comparison's detection limits: the flagship's (flagship_f32_vs_plain),
+# boxes at 5e-3
+VARIANT_DET_LIMITS = {"boxes": 5e-3, "scores": 1e-3, "masks": 1e-3}
+# variants whose K3 shapes no earlier phase runs: their step is also held
+# with K3 alone swapped, at K3_GRAD_RTOL
+K3_ALONE = ("mask_rcnn_c4", "prcnn")
+
+
+def variants_f32_vs_plain(dev):
+    """Each variant at batch 2 in f32 with the kernels and with their plain
+    versions: detections (valid, labels and head_ids identical), then one
+    supervised step's losses and gradients."""
+    from mmt_psm_tpu_torch.data.synthetic import batch_to_torch, generate_batch
+    from mmt_psm_tpu_torch.models.detector import model_from_cfg
+    from mmt_psm_tpu_torch.models.variants import VARIANTS, variant_config
+    from mmt_psm_tpu_torch.train import build_trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plain = kernel_wrappers()
+    everything = ("nms", "roi_align", "roi_align_backward")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(2, CANVAS, CANVAS, 3, generator=gen, device=dev) * 40.0
+    sizes = torch.tensor([[CANVAS, CANVAS], [900, 1000]], dtype=torch.int32).to(dev)
+    batch = batch_to_torch(generate_batch(7, 2, image_size=CANVAS, max_instances=64), dev)
+    f32 = ["TPU.COMPUTE_DTYPE", "float32"]
+
+    def swapped(names):
+        stack = contextlib.ExitStack()
+        for n in names:
+            stack.enter_context(mock.patch.object(*plain[n]))
+        return stack
+
+    for name, (path, opts) in VARIANTS.items():
+        t_v = time.perf_counter()
+        model = model_from_cfg(variant_config(name, f32), dev, seed=0)
+        got = model(x, sizes)
+        with swapped(everything):
+            want = model(x, sizes)
+        del model
+        same = ["valid", "labels"] + (["head_ids"] if got.head_ids is not None else [])
+        if not all(torch.equal(getattr(got, f), getattr(want, f)) for f in same):
+            raise AssertionError(f"{name} f32 detections: {same} differ between kernels and plain versions")
+        errs = {f: float((getattr(got, f) - getattr(want, f)).abs().max())
+                for f in VARIANT_DET_LIMITS if getattr(got, f) is not None}
+        over = {f: e for f, e in errs.items() if not e <= VARIANT_DET_LIMITS[f]}
+        if over:
+            raise AssertionError(f"{name} f32 detections differ beyond {VARIANT_DET_LIMITS}: {over}")
+        line = f"detections {same} identical, max abs err {errs}"
+        if VARIANT_LAUNCHES[name][1]["nms"]:  # RPN_ONLY's step launches no kernel
+
+            def step(swap):
+                trainer = build_trainer(path, device=dev, seed=0, opts=[*opts, *f32])
+                if trainer.model.config.with_relation_nms:  # the geometric gate off its pole (see GRAD_RTOL)
+                    with torch.no_grad():
+                        trainer.model.relation_nms.relation_module.WG.bias.fill_(WG_BIAS)
+                with swapped(swap):
+                    losses = trainer.step(batch)
+                return ({k: float(v) for k, v in losses.items()},
+                        {n: p.grad for n, p in trainer.model.named_parameters() if p.grad is not None})
+
+            got_l, got_g = step(())
+            for swap, rtol in [(everything, GRAD_RTOL)] + ([(("roi_align_backward",), K3_GRAD_RTOL)]
+                                                           if name in K3_ALONE else []):
+                want_l, want_g = step(swap)
+                bad = {k: (got_l[k], want_l[k]) for k in want_l
+                       if not abs(got_l[k] - want_l[k]) <= LOSS_RTOL * abs(want_l[k])}
+                if bad:
+                    raise AssertionError(f"{name} f32 step, {swap} plain: losses beyond {LOSS_RTOL}: {bad}")
+                line += f"; {'+'.join(swap)} plain: losses within {LOSS_RTOL}, " + norm_diffs(
+                    got_g, want_g, rtol, f"gradients ({'+'.join(swap)} plain)")
+            del got_g, want_g
+        torch.cuda.empty_cache()
+        print(f"variant {name} f32 kernels vs plain ({time.perf_counter() - t_v:.1f} s): {line}", flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1357,6 +1685,8 @@ def main() -> int:
     phase("mt f32 vs plain", lambda: mt_f32_vs_plain(dev))
     loop_images_per_s, steps_alone, loader_rates = phase(
         "train CLI bf16", lambda: train_cli_path(dev, stats, images_per_s, mt_images_per_s, eval_ds))
+    variant_rates = phase("variants bf16", lambda: variants_path(dev, stats, eval_ds))
+    phase("variants f32 vs plain", lambda: variants_f32_vs_plain(dev))
     print(f"throughput: {patches_per_s:.3f} patches/s at {CANVAS}px, batch {BATCH}, bf16 on {card}", flush=True)
     print(f"eval throughput: {eval_timing['images_per_sec']} evaluated patches/s at {CANVAS}px, batch {BATCH}, bf16, "
           f"host paste and Papeval included, scored serially; stage_seconds "
@@ -1368,6 +1698,12 @@ def main() -> int:
     print(f"train CLI throughput: {loop_images_per_s:.3f} labeled images/s in the loop's warm iterations at "
           f"{CANVAS}px, batch {BATCH}, bf16, against {steps_alone:.3f} for its steps alone; loaders at 1000-px "
           f"windows {json.dumps(loader_rates)} batches/s on {card}", flush=True)
+    for name, row in variant_rates.items():
+        print(f"variant {name} throughput: {row['patches_per_s']:.3f} patches/s, {row['images_per_s']:.3f} images/s "
+              f"(supervised)" + (f", {row['evaluated_patches_per_s']:.3f} evaluated patches/s"
+                                 if "evaluated_patches_per_s" in row else "")
+              + (f", {row['mt_images_per_s']:.3f} MT labeled images/s" if "mt_images_per_s" in row else "")
+              + f" at {CANVAS}px, batch {BATCH}, bf16 on {card}", flush=True)
     print(json.dumps({"kernels": [stats["nms"], stats["roi_align"], stats["roi_align_backward"]]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ the test-time graph through the hand-written kernels in ``csrc/``.
 sweeps a directory of checkpoints. ``python -m
 mmt_psm_tpu_torch.tools.train_mean_teacher`` trains the flagship with the
 mean teacher through the host loop ``engine.trainer.MTTrainer``, with
-checkpoints and resume.
+checkpoints and resume. ``models.variants`` names every other graph the
+config builds (the plain Mask R-CNN, set-NMS, the mask relation variants,
+RPN_ONLY, R-50-C4, PRCNN, backbone recomputation), for ``model_from_cfg``
+and the trainers.
 
 The names below load ``models`` (and torch) at first use, so the host eval
 modules (``evaluation``, ``engine.paste``, ``engine._eval_worker``) import

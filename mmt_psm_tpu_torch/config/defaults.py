@@ -74,10 +74,15 @@ def get_cfg() -> ConfigNode:
     C.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 512
     C.MODEL.ROI_HEADS.POSITIVE_FRACTION = 0.25
     C.MODEL.ROI_HEADS.BBOX_REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
+    C.MODEL.ROI_HEADS.SCORE_THRESH = 0.05
+    C.MODEL.ROI_HEADS.NMS = 0.5
+    # "set" with ROI_BOX_HEAD.K_HEAD > 1: set-NMS on the host (engine/inference.py)
+    C.MODEL.ROI_HEADS.NMS_TYPE = "basic"
     C.MODEL.ROI_HEADS.DETECTIONS_PER_IMG = 200
 
     C.MODEL.ROI_BOX_HEAD = ConfigNode()
     C.MODEL.ROI_BOX_HEAD.DO = 0.0
+    C.MODEL.ROI_BOX_HEAD.K_HEAD = 1.0
     C.MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR = "ResNet50Conv5ROIFeatureExtractor"
     C.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 14
     C.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO = 0
@@ -199,6 +204,9 @@ def get_cfg() -> ConfigNode:
     C.TPU.IMAGE_SIZE = 1024
     C.TPU.MAX_GT = 64
     C.TPU.COMPUTE_DTYPE = "bfloat16"
+    # recompute each backbone bottleneck in the backward (torch.utils.checkpoint)
+    # instead of keeping its activations; the gradients do not change
+    C.TPU.REMAT_BACKBONE = False
     # devices of the data-parallel mesh, -1 all of them: the port's loop
     # runs on one device (engine/trainer.py)
     C.TPU.MESH_SHAPE = (-1,)

@@ -4,8 +4,11 @@ host's paste and Papeval (the port's copy of
 maskrcnn_benchmark/engine/inference.py:16-125 and
 evaluation/pap/pap_eval.py:79-143).
 
-The model emits 28x28 mask probabilities per detection; the host pastes
-them into image space at threshold 0.5 (``engine/paste.py``) and scores
+The model emits 28x28 mask probabilities per detection (a box-only model
+none: each box is then filled); a model with set-NMS (K_HEAD > 1) tags its
+detections with their proposals, and the host keeps the set-NMS survivors
+of each class (``models/box_head.py::set_nms_filter``). The host pastes
+the masks into image space at threshold 0.5 (``engine/paste.py``) and scores
 the box-cropped instance masks against the ground truth
 (``evaluation/pap_eval.py``), in this process or in a pool of spawned
 worker processes (``engine/_eval_worker.py``).
@@ -35,6 +38,7 @@ from ..data.loader import prefetch, usable_cpus
 from ..data.transforms import PIXEL_MEAN_BGR
 from ..evaluation import _native
 from ..evaluation.pap_eval import PapEvaluator
+from ..models.box_head import set_nms_filter
 from . import _eval_worker
 from .paste import detections_to_instseg, gt_to_instseg
 
@@ -76,7 +80,8 @@ class DeviceStage:
     ``dispatch(batch)`` launches one batch and returns at once on the card
     (on the CPU it runs the forward); ``fetch(pending)`` waits for it and
     returns numpy copies of (boxes, scores, labels, valid, masks float16 or
-    None). Two staging slots alternate: a slot's pinned input buffers are
+    None for a box-only model, head_ids or None where the model does not
+    tag its detections for set-NMS). Two staging slots alternate: a slot's pinned input buffers are
     written again only after the event of their last copy to the card, and
     its pinned output buffers only after ``fetch`` has copied them out."""
 
@@ -105,17 +110,15 @@ class DeviceStage:
 
     def _outputs(self, images, sizes):
         d = self.model(self.normalize(images, sizes), sizes)
-        outs = [d.boxes, d.scores, d.labels, d.valid]
-        if d.masks is not None:
-            # the host pastes float16-rounded probabilities, as the JAX engine does
-            outs.append(d.masks.to(torch.float16))
-        return outs
+        # the host pastes float16-rounded probabilities, as the JAX engine does
+        return {"boxes": d.boxes, "scores": d.scores, "labels": d.labels, "valid": d.valid,
+                "masks": None if d.masks is None else d.masks.to(torch.float16), "head_ids": d.head_ids}
 
     def dispatch(self, batch):
         images = torch.from_numpy(np.ascontiguousarray(batch["image"]))
         sizes = torch.from_numpy(np.ascontiguousarray(batch["image_size"], np.int32))
         if not self.cuda:
-            return [t.numpy() for t in self._outputs(images, sizes)]
+            return {k: None if t is None else t.numpy() for k, t in self._outputs(images, sizes).items()}
         slot = self._slots[self._turn]
         self._turn = (self._turn + 1) % self.SLOTS
         if "copied" in slot and not slot["copied"].query():
@@ -129,12 +132,12 @@ class DeviceStage:
             staged.append(buf.to(self.device, non_blocking=True))
         slot["copied"] = torch.cuda.Event()
         slot["copied"].record()
-        outs = self._outputs(*staged)
+        outs = {k: t for k, t in self._outputs(*staged).items() if t is not None}
         host = slot.get("out")
-        if host is None or [h.shape for h in host] != [o.shape for o in outs]:
-            host = slot["out"] = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs]
-        for h, o in zip(host, outs):
-            h.copy_(o, non_blocking=True)
+        if host is None or {k: h.shape for k, h in host.items()} != {k: o.shape for k, o in outs.items()}:
+            host = slot["out"] = {k: torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for k, o in outs.items()}
+        for k, o in outs.items():
+            host[k].copy_(o, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         return done, host
@@ -145,8 +148,8 @@ class DeviceStage:
         else:
             done, host = pending
             done.synchronize()
-            outs = [h.numpy().copy() for h in host]
-        return (*outs[:4], outs[4] if len(outs) > 4 else None)
+            outs = {k: h.numpy().copy() for k, h in host.items()}
+        return tuple(outs.get(k) for k in ("boxes", "scores", "labels", "valid", "masks", "head_ids"))
 
 
 def _start_pool(workers: int):
@@ -238,7 +241,7 @@ def run_inference(
             t_d = time.perf_counter()
             acc["loader"] += t_d - t
             next_pending = stage.dispatch(next_batch) if next_batch is not None else None
-            boxes, scores, labels, valid, masks16 = stage.fetch(pending)
+            boxes, scores, labels, valid, masks16, head_ids = stage.fetch(pending)
             acc["device"] += time.perf_counter() - t_d
             if masks16 is None:
                 # a box-only model: box-filled 1x1 probabilities
@@ -249,6 +252,12 @@ def run_inference(
             # the test loader pads the last batch by repeating a sample
             n_real = int(batch.get("n_real", boxes.shape[0]))
             for i in range(n_real):
+                v_i = valid[i]
+                if head_ids is not None:
+                    # K_HEAD > 1: set-NMS on the host (box_head/inference.py:120-122)
+                    v_i = set_nms_filter(boxes[i], scores[i], labels[i], v_i, head_ids[i],
+                                         nms_thresh=model.config.nms_thresh,
+                                         num_classes=model.config.num_classes)
                 t_g = time.perf_counter()
                 gt = gt_to_instseg(np.asarray(batch["boxes"][i]), np.asarray(batch["labels"][i]),
                                    np.asarray(batch["gt_valid"][i]), np.asarray(batch["masks"][i]))
@@ -257,10 +266,10 @@ def run_inference(
                 hw = tuple(np.asarray(batch["image_size"][i]).tolist())
                 if pool is not None:
                     result_slots.append(pool.submit(_eval_worker.eval_one, (
-                        boxes[i], scores[i], labels[i], valid[i], masks[i] if masks16 is None else masks16[i],
+                        boxes[i], scores[i], labels[i], v_i, masks[i] if masks16 is None else masks16[i],
                         hw, gt, evaluator.categories, evaluator.max_dets, evaluator.use_iou)))
                 else:
-                    evaluator.add_image(detections_to_instseg(boxes[i], scores[i], labels[i], valid[i], masks[i], hw),
+                    evaluator.add_image(detections_to_instseg(boxes[i], scores[i], labels[i], v_i, masks[i], hw),
                                         gt)
                 acc["score"] += time.perf_counter() - t_s
                 n_images += 1

@@ -47,7 +47,11 @@ def grid_anchors(cell: np.ndarray, grid: int, stride: int) -> np.ndarray:
 
 
 def fpn_anchors(image_size: int, strides, sizes, aspect_ratios):
-    """Per-level float32 [H_l*W_l*A, 4] anchors, one size per stride."""
+    """Per-level float32 [H_l*W_l*A, 4] anchors, one size per stride; a
+    single stride (the C4 family) gets every size on its one level."""
+    if len(strides) == 1:
+        return [grid_anchors(generate_cell_anchors(strides[0], sizes, aspect_ratios), image_size // strides[0],
+                             strides[0])]
     return [
         grid_anchors(generate_cell_anchors(stride, (size,), aspect_ratios), image_size // stride, stride)
         for stride, size in zip(strides, sizes)

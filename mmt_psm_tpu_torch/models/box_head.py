@@ -1,11 +1,16 @@
-"""RoI box head (port of ``mmt_psm_tpu/models/box_head.py:40-121, 177-198``).
+"""RoI box head (port of ``mmt_psm_tpu/models/box_head.py``).
 
 FPN2MLPFeatureExtractor (fc6/fc7 over 7x7 pooled features, dropout after
 each in training) and FPNPredictor (class logits, per-class box deltas);
 in training, ``subsample_proposals`` matches proposals to gt (0.5/0.5)
 and samples 512 per image at a quarter positives, and ``box_head_loss``
 takes the cross entropy and the class-sliced smooth-L1 (beta 1) over the
-sampled count. ``fc6.weight`` keeps the reference's layout, whose input
+sampled count. Without relation-NMS, ``postprocess_boxes`` turns the
+head's outputs into detections (the reference's PostProcessor): per class,
+score above 0.05, greedy NMS at 0.5 through one K1 launch for every (image,
+class) problem, then the best 200 over the classes; or, for set-NMS, the
+best of each class tagged with their proposal, which ``set_nms_filter``
+filters on the host. ``fc6.weight`` keeps the reference's layout, whose input
 index runs over (C, H, W); the port flattens pooled features in the JAX
 order (H, W, C), so the forward permutes the weight's input axis, which
 it casts anyway, instead of copying the activations. The JAX
@@ -22,11 +27,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import losses as L
-from ..ops.box_coder import encode
+from ..ops.box_coder import decode, encode
 from ..ops.matcher import BETWEEN_THRESHOLDS, match
+from ..ops.nms import NEG_INF, nms_topk
 from ..ops.sampler import sample
-from ..structures.boxes import box_iou
-from ..structures.detections import GroundTruth, Proposals
+from ..ops.topk import top_k
+from ..structures.boxes import box_iou, clip_to_image
+from ..structures.detections import Detections, GroundTruth, Proposals
 from .layers import Linear, normal_, variance_scaling_
 
 
@@ -81,15 +88,6 @@ class FPNPredictor(nn.Module):
         return self.cls_score(x), self.bbox_pred(x)
 
 
-class BoxHead(nn.Module):
-    """Holds extractor and predictor under ``roi_heads.box``."""
-
-    def __init__(self, in_channels: int, resolution: int, mlp_dim: int, num_classes: int, dropout: float = 0.0):
-        super().__init__()
-        self.feature_extractor = FPN2MLPExtractor(in_channels, resolution, mlp_dim, dropout)
-        self.predictor = FPNPredictor(mlp_dim, num_classes)
-
-
 @dataclasses.dataclass
 class SampledRoIs:
     boxes: torch.Tensor  # f32 [B, S, 4]
@@ -139,3 +137,65 @@ def box_head_loss(class_logits, box_regression, rois: SampledRoIs):
     box_loss = L.smooth_l1_sum(torch.gather(regs, 1, offs), rois.reg_targets.reshape(-1, 4), beta=1.0,
                                weight=rois.is_pos.reshape(-1).float()[:, None])
     return cls_loss, box_loss / valid.sum().clamp(min=1.0)
+
+
+def postprocess_boxes(class_logits, box_regression, proposals: Proposals, image_sizes, *, num_classes: int,
+                      score_thresh: float = 0.05, nms_thresh: float = 0.5, detections_per_img: int = 200,
+                      reg_weights=(10.0, 10.0, 5.0, 5.0), nms_type: str = "greedy") -> Detections:
+    """Detections of the box head without relation-NMS (box_head/inference.py:92-145).
+
+    class_logits [B, N, C]; box_regression [B, N, 4C]; proposals [B, N];
+    image_sizes int [B, 2]. Softmax, per-class decode and clip, score >
+    ``score_thresh``; "greedy": the NMS survivors of each (image, class),
+    the best ``detections_per_img`` of each, all B x (C-1) problems in one
+    NMS launch; "set": the best of each class without NMS, each tagged with
+    its proposal in ``head_ids`` for ``set_nms_filter``. Then the best
+    ``detections_per_img`` of each image over its classes."""
+    b, n = class_logits.shape[:2]
+    k = num_classes - 1
+    probs = torch.softmax(class_logits.float(), dim=-1)
+    decoded = decode(box_regression.float(), proposals.boxes, reg_weights).reshape(b, n, num_classes, 4)
+    decoded = clip_to_image(decoded, image_sizes[:, 0, None, None], image_sizes[:, 1, None, None])
+    # one problem per (image, foreground class), image-major
+    boxes = decoded[:, :, 1:].permute(0, 2, 1, 3).reshape(b * k, n, 4)
+    scores = probs[..., 1:].permute(0, 2, 1).reshape(b * k, n)
+    valid = (proposals.valid[:, None, :] & (probs[..., 1:].permute(0, 2, 1) > score_thresh)).reshape(b * k, n)
+    if nms_type == "set":
+        masked = torch.where(valid, scores, NEG_INF)
+        top, idx = top_k(masked, min(detections_per_img, n))
+        v = top > NEG_INF / 10
+    else:
+        idx, v = nms_topk(boxes, scores, valid, nms_thresh, detections_per_img)
+    m = idx.shape[1]
+    sel_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4)).reshape(b, k * m, 4)
+    sel_scores = torch.where(v, torch.gather(scores, 1, idx), 0.0).reshape(b, k * m)
+    labels = torch.arange(1, num_classes, dtype=torch.int32, device=idx.device).repeat_interleave(m)
+    v = v.reshape(b, k * m)
+    top_scores, top_idx = top_k(torch.where(v, sel_scores, NEG_INF), detections_per_img)
+    keep = top_scores > NEG_INF / 10
+    labels = labels[top_idx]
+    return Detections(
+        boxes=torch.gather(sel_boxes, 1, top_idx[..., None].expand(-1, -1, 4)),
+        scores=torch.where(keep, top_scores, 0.0),
+        labels=torch.where(keep, labels, 0),
+        valid=keep,
+        head_ids=torch.gather(idx.reshape(b, k * m), 1, top_idx) if nms_type == "set" else None,
+    )
+
+
+def set_nms_filter(boxes, scores, labels, valid, head_ids, nms_thresh=0.5, num_classes=3):
+    """The host pass of nms_type "set" on one image's numpy arrays: per
+    class, set-NMS over its valid detections; returns ``valid`` with the
+    suppressed ones cleared."""
+    import numpy as np
+
+    from ..ops.python_nms import set_cpu_nms
+
+    valid = np.asarray(valid).copy()
+    for j in range(1, num_classes):
+        sel = np.flatnonzero(valid & (np.asarray(labels) == j))
+        if len(sel) < 2:
+            continue
+        keep = set_cpu_nms(np.asarray(boxes)[sel], np.asarray(scores)[sel], np.asarray(head_ids)[sel], nms_thresh)
+        valid[sel[~keep]] = False
+    return valid

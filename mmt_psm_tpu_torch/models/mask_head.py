@@ -1,7 +1,9 @@
 """RoI mask head (port of ``mmt_psm_tpu/models/mask_head.py``).
 
 MaskRCNNFPNFeatureExtractor (14x14 pooled -> 4x conv256) and
-MaskRCNNC4Predictor (2x2/2 deconv + 1x1 logits). Activations run NCHW in
+MaskRCNNC4Predictor (2x2/2 deconv + 1x1 logits); the CSPN baseline's
+PRCNNFeatureExtractor (a conv tower over the raw image, pooled at four
+scales into 25x25 bins by kernel K2 and fused) and PRCNNPredictor. Activations run NCHW in
 channels_last memory; the head's inputs and outputs keep the JAX layouts
 ([N, P, P, C] features, [B, K, R, R, classes] logits). In training the
 head sees the first ``MASK_MAX_POS`` positive RoIs of each image, its
@@ -17,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import losses as L
-from ..ops.pooler import _axis_samples
+from ..ops.pooler import _axis_samples, multilevel_roi_align
 from ..ops.topk import top_k
 from .layers import Conv2d, ConvTranspose2d, variance_scaling_
 
@@ -59,6 +61,61 @@ class MaskRCNNC4Predictor(nn.Module):
 
     def forward(self, x):
         return self.mask_fcn_logits(F.relu(self.conv5_mask(x)))
+
+
+class PRCNNExtractor(nn.Module):
+    """The CSPN baseline's extractor (reference roi_mask_feature_extractors.py:
+    9-88; JAX ``PRCNNExtractor``): two 3x3 convs at each of four scales of
+    the raw image (32, 64, 128, 256 channels, a 3x3/2 max-pool between
+    scales), each scale's output ROIAligned in float32 at its own stride
+    (1, 1/2, 1/4, 1/8) into 25x25 bins, the four concatenated (480
+    channels), then ``posconv1`` (480 -> 256, relu) and ``posconv2``
+    (256 -> 32). Every scale is one launch of kernel K2 with one level, and
+    its backward one launch of K3."""
+
+    CHANNELS = ((32, 32), (64, 64), (128, 128), (256, 256))
+
+    def __init__(self, pool_size: int = 25, sampling: int = 2):
+        super().__init__()
+        self.pool_size, self.sampling = pool_size, sampling
+        in_ch = 3
+        for stage, (c1, c2) in enumerate(self.CHANNELS):
+            setattr(self, f"conv{2 * stage + 1}", Conv2d(in_ch, c1, 3, padding=1))
+            setattr(self, f"conv{2 * stage + 2}", Conv2d(c1, c2, 3, padding=1))
+            in_ch = c2
+        self.posconv1 = Conv2d(sum(c for _, c in self.CHANNELS), 256, 3, padding=1)
+        self.posconv2 = Conv2d(256, 32, 3, padding=1)
+
+    def forward(self, images, boxes, dtype: torch.dtype):
+        """images [B, H, W, 3] (normalized); boxes [B, S, 4] in image
+        coordinates; the convs run in ``dtype``. Returns [B*S, 32, P, P]
+        NCHW in channels_last memory."""
+        b, s = boxes.shape[:2]
+        x = images.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        pooled = []
+        for stage in range(len(self.CHANNELS)):
+            x = F.relu(getattr(self, f"conv{2 * stage + 1}")(x))
+            x = F.relu(getattr(self, f"conv{2 * stage + 2}")(x))
+            # an NHWC view of the channels_last map, contiguous as K2 wants it
+            level = x.float().permute(0, 2, 3, 1)
+            pooled.append(multilevel_roi_align([level], boxes, (0.5**stage,), self.pool_size, self.sampling))
+            if stage < len(self.CHANNELS) - 1:
+                x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+        p = self.pool_size
+        cat = torch.cat(pooled, dim=-1).reshape(b * s, p, p, -1)
+        cat = cat.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return self.posconv2(F.relu(self.posconv1(cat)))
+
+
+class PRCNNPredictor(nn.Module):
+    """relu, then 1x1 logits (roi_mask_predictors.py:39-53)."""
+
+    def __init__(self, in_channels: int = 32, num_classes: int = 3):
+        super().__init__()
+        self.mask_fcn_logits = Conv2d(in_channels, num_classes, 1)
+
+    def forward(self, x):
+        return self.mask_fcn_logits(F.relu(x))
 
 
 def select_mask_probs(mask_logits, labels):

@@ -7,6 +7,13 @@ then bottleneck stages with the stride on the first 1x1 conv
 (``layer1.0.conv1``, ``layer1.0.downsample.0``) so ``state_dict`` keys
 match the reference checkpoint.
 
+The stage specs are the JAX package's (``STAGE_SPECS``, resnet.py:28-33):
+the FPN bodies return C2..C5, R-50-C4 stops after layer3 and returns C4,
+R-50-C5 returns C5. With ``remat`` (TPU.REMAT_BACKBONE) each bottleneck
+runs under ``torch.utils.checkpoint`` when gradients are on: its
+activations are recomputed in the backward instead of kept, and the
+gradients do not change (the JAX ``nn.remat``).
+
 FREEZE_CONV_BODY_AT as the JAX model does it: the stem's output and the
 output of every stage below ``freeze_at`` are detached (its
 ``stop_gradient``, resnet.py:98-99, 119-120), and those modules' weights
@@ -18,10 +25,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import Conv2d, FrozenBatchNorm2d, variance_scaling_
 
-STAGE_BLOCKS = {"R-50-FPN": (3, 4, 6, 3), "R-101-FPN": (3, 4, 23, 3)}
+# conv body -> (blocks per stage, which stages' outputs it returns)
+STAGE_SPECS = {
+    "R-50-C4": ((3, 4, 6), (False, False, True)),
+    "R-50-C5": ((3, 4, 6, 3), (False, False, False, True)),
+    "R-50-FPN": ((3, 4, 6, 3), (True, True, True, True)),
+    "R-101-FPN": ((3, 4, 23, 3), (True, True, True, True)),
+}
 
 
 class Stem(nn.Module):
@@ -61,17 +75,18 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Returns the outputs of the four stages (C2..C5)."""
+    """Returns the outputs of the stages the conv body's spec selects."""
 
     def __init__(self, conv_body: str = "R-50-FPN", stem_out_channels: int = 64,
                  res2_out_channels: int = 256, width_per_group: int = 64, stride_in_1x1: bool = True,
-                 freeze_at: int = 2):
+                 freeze_at: int = 2, remat: bool = False):
         super().__init__()
-        self.freeze_at = freeze_at
+        self.freeze_at, self.remat = freeze_at, remat
         self.stem = Stem(stem_out_channels)
         in_ch = stem_out_channels
         self.stages = []
-        for i, n_blocks in enumerate(STAGE_BLOCKS[conv_body]):
+        blocks_per_stage, self.returns = STAGE_SPECS[conv_body]
+        for i, n_blocks in enumerate(blocks_per_stage):
             bott, out = width_per_group * 2**i, res2_out_channels * 2**i
             blocks = []
             for b in range(n_blocks):
@@ -80,6 +95,7 @@ class ResNet(nn.Module):
                 in_ch = out
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
             self.stages.append(f"layer{i + 1}")
+        self.out_channels = in_ch
         for name in self.frozen_modules():
             getattr(self, name).requires_grad_(False)
 
@@ -101,9 +117,12 @@ class ResNet(nn.Module):
         if self.freeze_at >= 1:
             x = x.detach()
         outs = []
+        remat = self.remat and torch.is_grad_enabled()
         for i, name in enumerate(self.stages):
-            x = getattr(self, name)(x)
+            for block in getattr(self, name):
+                x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             if self.freeze_at >= i + 2:
                 x = x.detach()
-            outs.append(x)
+            if self.returns[i]:
+                outs.append(x)
         return outs

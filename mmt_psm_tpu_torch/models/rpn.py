@@ -36,9 +36,9 @@ from .layers import Conv2d, normal_
 class RPNHead(nn.Module):
     """Single 3x3 conv shared over levels + 1x1 objectness and box heads."""
 
-    def __init__(self, channels: int = 256, num_anchors: int = 3):
+    def __init__(self, channels: int = 256, num_anchors: int = 3, in_channels: int | None = None):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, padding=1)
+        self.conv = Conv2d(in_channels or channels, channels, 3, padding=1)
         self.cls_logits = Conv2d(channels, num_anchors, 1)
         self.bbox_pred = Conv2d(channels, num_anchors * 4, 1)
 
@@ -60,9 +60,9 @@ class RPNHead(nn.Module):
 class RPN(nn.Module):
     """Holds the head under maskrcnn-benchmark's ``rpn.head`` prefix."""
 
-    def __init__(self, channels: int = 256, num_anchors: int = 3):
+    def __init__(self, channels: int = 256, num_anchors: int = 3, in_channels: int | None = None):
         super().__init__()
-        self.head = RPNHead(channels, num_anchors)
+        self.head = RPNHead(channels, num_anchors, in_channels)
 
     def forward(self, features):
         return self.head(features)

@@ -26,8 +26,16 @@ def smooth_l1_sum(input, target, beta: float = 1.0 / 9, weight=None):
 
 
 def bce_with_logits(logits, targets):
-    """Elementwise binary cross entropy on logits, in the JAX package's form."""
-    return torch.clamp(logits, min=0) - logits * targets + torch.log1p(torch.exp(-torch.abs(logits)))
+    """Elementwise binary cross entropy on logits, in the JAX package's form,
+    with its gradient at a logit of exactly 0 (-target): ``torch.maximum``
+    splits the tie with 0 in halves as ``jnp.maximum`` does (``clamp``
+    passes all of it), and |x| is taken as ``where(x >= 0, x, -x)``, whose
+    slope at 0 is 1 as ``jnp.abs``'s is (``torch.abs``'s is 0). Such logits
+    occur: a dead ReLU before a head whose bias is 0 leaves every logit it
+    reaches at 0."""
+    zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    magnitude = torch.where(logits >= 0, logits, -logits)
+    return torch.maximum(logits, zero) - logits * targets + torch.log1p(torch.exp(-magnitude))
 
 
 def softmax_ce(logits, labels, weight=None, normalizer=None):

@@ -33,3 +33,6 @@ class Detections:
     labels: torch.Tensor  # int32 [B, K]
     valid: torch.Tensor  # bool [B, K]
     masks: torch.Tensor | None = None  # f32 [B, K, R, R] mask probabilities
+    # source-proposal index of each detection, set by the "set" post-processor
+    # only: the host's set-NMS keeps overlapping boxes that share it
+    head_ids: torch.Tensor | None = None  # int64 [B, K]

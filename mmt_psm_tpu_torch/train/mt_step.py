@@ -329,7 +329,7 @@ def unlabeled_losses(student, teacher, batch, gen: torch.Generator, mt: MTConfig
             integral = gt_integral_canvas(targets.masks, targets.valid, canvas_size) if use_mgd else None
         else:
             with record_function("mt_teacher_pseudo_labels"):
-                dets = teacher.detections_from_features(t_feats[0], sizes)
+                dets = teacher.detections_from_features(t_feats[0], sizes, t_images[:, 0])
             pseudo = GroundTruth(boxes=dets.boxes, labels=dets.labels, valid=dets.valid)
             integral = None
             if use_mgd:

@@ -23,7 +23,9 @@ import numpy as np
 import torch
 
 # port (maskrcnn-benchmark) name prefix -> (flax path prefix, kind); the
-# rules of mmt_psm_tpu/utils/torch_import.py for the modules the port has
+# rules of mmt_psm_tpu/utils/torch_import.py for the modules the port has,
+# and the same rules for the C4 stage-5 head, PRCNN's convs and ShapeBuffer,
+# which that importer does not map
 _RULES = [
     (r"^backbone\.body\.stem\.conv1", ("backbone/body/stem/conv1", "conv")),
     (r"^backbone\.body\.stem\.bn1", ("backbone/body/stem/bn1", "bn")),
@@ -36,11 +38,22 @@ _RULES = [
     (r"^rpn\.head\.conv", ("rpn/conv", "conv")),
     (r"^rpn\.head\.cls_logits", ("rpn/cls_logits", "conv")),
     (r"^rpn\.head\.bbox_pred", ("rpn/bbox_pred", "conv")),
+    # the C4 box head's stage-5 extractor (roi_box_feature_extractors.py:12-42)
+    (r"^roi_heads\.box\.feature_extractor\.head\.layer4\.(\d+)\.conv(\d)",
+     (r"box_extractor/head/layer4_\1/conv\2", "conv")),
+    (r"^roi_heads\.box\.feature_extractor\.head\.layer4\.(\d+)\.bn(\d)",
+     (r"box_extractor/head/layer4_\1/bn\2", "bn")),
+    (r"^roi_heads\.box\.feature_extractor\.head\.layer4\.(\d+)\.downsample\.0",
+     (r"box_extractor/head/layer4_\1/downsample_conv", "conv")),
+    (r"^roi_heads\.box\.feature_extractor\.head\.layer4\.(\d+)\.downsample\.1",
+     (r"box_extractor/head/layer4_\1/downsample_bn", "bn")),
     (r"^roi_heads\.box\.feature_extractor\.fc6", ("box_extractor/fc6", "linear_chw")),
     (r"^roi_heads\.box\.feature_extractor\.fc7", ("box_extractor/fc7", "linear")),
     (r"^roi_heads\.box\.predictor\.cls_score", ("box_predictor/cls_score", "linear")),
     (r"^roi_heads\.box\.predictor\.bbox_pred", ("box_predictor/bbox_pred", "linear")),
     (r"^roi_heads\.mask\.feature_extractor\.mask_fcn(\d)", (r"mask_extractor/mask_fcn\1", "conv")),
+    # the PRCNN extractor's tower and fusion convs
+    (r"^roi_heads\.mask\.feature_extractor\.((?:pos)?conv\d)", (r"mask_extractor/\1", "conv")),
     (r"^roi_heads\.mask\.predictor\.conv5_mask", ("mask_predictor/conv5_mask", "deconv")),
     (r"^roi_heads\.mask\.predictor\.mask_fcn_logits", ("mask_predictor/mask_fcn_logits", "conv")),
     (r"^hint_adaptor\.adapter_(\d)", (r"hint_adaptor/adapter_\1", "conv")),
@@ -58,6 +71,7 @@ _RULES = [
     (r"^roi_heads\.mask\.mask_relation_module\.classifier", ("mask_relation/classifier", "conv")),
     (r"^roi_heads\.mask\.mask_relation_module\.deconv_1", ("mask_relation/deconv_1", "deconv")),
     (r"^roi_heads\.mask\.mask_relation_module\.relation_module(?=\.gamma)", ("mask_relation", "raw")),
+    (r"^shape_buffer(?=\.center)", ("shape_buffer", "raw")),
 ]
 
 

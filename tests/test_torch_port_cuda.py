@@ -36,7 +36,8 @@ def _boxes(gen, shape, canvas, dev):
     return torch.cat([xy, xy + wh], -1)
 
 
-@pytest.mark.parametrize("p,n,thr", [(20, 1000, 0.7), (20, 2000, 0.7), (8, 90, 0.55), (3, 130, 0.5), (2, 1, 0.5)])
+@pytest.mark.parametrize("p,n,thr", [(20, 1000, 0.7), (20, 2000, 0.7), (8, 90, 0.55), (3, 130, 0.5), (2, 1, 0.5),
+                                     (8, 1000, 0.5), (4, 6000, 0.7), (4, 12000, 0.7)])
 def test_nms_kernel_identical_to_plain(dev, p, n, thr):
     gen = torch.Generator(device=dev).manual_seed(n)
     boxes = _boxes(gen, (p, n), 512, dev)
@@ -384,3 +385,69 @@ def test_train_cli_on_the_card(dev, tmp_path):
     assert all(math.isfinite(x) for m in meters.values() for x in m.deque)
     res = main(argv + ["SOLVER.MAX_ITER", "4"])
     assert res["start_iter"] == 3 and res["trainer"].steps.iteration == 4
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 0.0), (torch.bfloat16, 2.0**-7)])
+@pytest.mark.parametrize("what,shape,scale,p,n", [
+    # R-50-C4: the box and mask heads pool one stride-16 level of 1024 channels at P14
+    ("c4", (2, 64, 64, 1024), 1.0 / 16, 14, 200),
+    # PRCNN: a 32-channel full-resolution scale of the image at P25
+    ("prcnn", (2, 256, 256, 32), 1.0, 25, 64),
+])
+def test_roi_align_kernels_one_level(dev, dtype, rtol, what, shape, scale, p, n):
+    """K2 and K3 with one level and one scale (every RoI on level 0), as
+    the C4 heads and PRCNN's pools call them: K2 within 1e-5 (f32) or one
+    bf16 rounding, K3 within 1e-4 (f32) or one bf16 step of the largest
+    gradient; one launch each."""
+    gen = torch.Generator(device=dev).manual_seed(p)
+    canvas = shape[1] / scale
+    feat = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    boxes = _boxes(gen, (shape[0], n), canvas, dev)
+    before = (P.multilevel_roi_align_cuda.launches, P.multilevel_roi_align_backward_cuda.launches)
+    got = P.multilevel_roi_align_cuda([feat], boxes, (scale,), p, 2)
+    want = P.multilevel_roi_align_plain([feat], boxes, (scale,), p, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-5, rtol=rtol)
+    grad = torch.randn(got.shape, generator=gen, device=dev).to(dtype)
+    (g,) = P.multilevel_roi_align_backward_cuda(grad, boxes, [shape], (scale,), p, 2)
+    (w,) = P.multilevel_roi_align_backward_plain(grad, boxes, [shape], (scale,), p, 2)
+    atol = 1e-4 if dtype == torch.float32 else 2.0**-7 * float(w.float().abs().max())
+    torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0.0)
+    assert (P.multilevel_roi_align_cuda.launches, P.multilevel_roi_align_backward_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("name", ["mask_rcnn_fpn", "set_nms", "mask_rel_same_predictor", "rpn_only",
+                                  "mask_rcnn_c4", "prcnn", "remat"])
+def test_variant_launches_and_never_syncs(dev, name):
+    """Each variant at a 256 canvas, batch 2, bf16: a forward under
+    synchronising calls made errors and one supervised step launch K1, K2
+    and K3 as ``chip_smoke.VARIANT_LAUNCHES`` says; finite losses."""
+    from chip_smoke import VARIANT_LAUNCHES, kernel_wrappers
+    from mmt_psm_tpu_torch.data.synthetic import batch_to_torch, generate_batch
+    from mmt_psm_tpu_torch.models.detector import model_from_cfg
+    from mmt_psm_tpu_torch.models.variants import VARIANTS, variant_config
+    from mmt_psm_tpu_torch.train import build_trainer
+
+    small = ["TPU.IMAGE_SIZE", "256", "TPU.MAX_GT", "16"]
+    path, opts = VARIANTS[name]
+    counters = {k: getattr(mod, attr) for k, (mod, attr, _) in kernel_wrappers().items()}
+    model = model_from_cfg(variant_config(name, small), dev)
+    x = torch.randn(2, 256, 256, 3, device=dev) * 40.0
+    sizes = torch.tensor([[256, 256], [200, 240]], dtype=torch.int32, device=dev)
+    model(x, sizes)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model(x, sizes)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert {k: fn.launches for k, fn in counters.items()} == VARIANT_LAUNCHES[name][0]
+    trainer = build_trainer(path, device=dev, opts=[*opts, *small])
+    batch = batch_to_torch(generate_batch(0, 2, image_size=256, max_instances=16), dev)
+    for fn in counters.values():
+        fn.launches = 0
+    losses = trainer.step(batch)
+    assert {k: fn.launches for k, fn in counters.items()} == VARIANT_LAUNCHES[name][1]
+    assert all(torch.isfinite(v) for v in losses.values())

@@ -43,6 +43,9 @@ def test_import_guard_no_jax():
     training = ("engine.trainer", "tools.train_mean_teacher", "utils.c2_loading", "utils.model_serialization",
                 "utils.logger", "utils.metric_logger")
     assert set(training) <= set(lines["SERVING"].split(","))
+    variants = ("models.variants", "models.c4", "models.mask_relation", "models.backbone", "ops.python_nms",
+                "ops.matcher", "models.box_head", "models.mask_head")
+    assert set(variants) <= set(lines["SERVING"].split(","))
 
 
 def test_eval_worker_imports_without_torch():
@@ -125,10 +128,21 @@ def test_build_model_on_cpu_at_full_width():
 
 
 def test_unsupported_settings_raise():
-    from mmt_psm_tpu_torch.models import ModelConfig
+    """Every graph of the JAX ``from_cfg`` builds (relation-NMS off gives the
+    greedy post-processor, tests/test_torch_port_variants_build.py walks the
+    rest); settings no graph can run raise, naming the setting, instead of
+    building something else."""
+    import dataclasses
+
+    from mmt_psm_tpu_torch.models import MaskRCNN, ModelConfig
 
     cfg = get_cfg()
     cfg.merge_from_file(U.FLAGSHIP)
     cfg.merge_from_list(["MODEL.RELATION_NMS.USE_RELATION_NMS", False])
-    with pytest.raises(NotImplementedError):
-        ModelConfig.from_cfg(cfg)
+    mc = ModelConfig.from_cfg(cfg)
+    assert not mc.with_relation_nms and mc.nms_type == "greedy"
+    with pytest.raises(ValueError, match="extractor 'NoSuchExtractor'"):
+        MaskRCNN(dataclasses.replace(mc, relation_mask=dataclasses.replace(mc.relation_mask,
+                                                                           extractor="NoSuchExtractor")))
+    with pytest.raises(ValueError, match="shares the box head's"):
+        MaskRCNN(dataclasses.replace(mc, mask_extractor="ResNet50Conv5ROIFeatureExtractor"))
