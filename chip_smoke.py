@@ -105,12 +105,33 @@ line is printed):
      labels and head_ids identical; boxes 5e-3, scores and masks 1e-3),
      then one supervised step's losses (1e-4) and gradients (GRAD_RTOL of
      their norm; with K3 alone swapped, K3_GRAD_RTOL, for C4 and PRCNN);
- 15. a ``{"kernels": [...]}`` line with each kernel's time over its calls
+ 15. the datasets path (``datasets bf16``), at the flagship's width (1024
+     canvas, bf16, batch 4, seed-0 weights): the serving phase's 8 windows
+     with the model's own instances as gt written as a COCO-format split
+     (``coco_syn`` by the catalog's ``coco_*`` convention: PNGs and an
+     annotations.json of uncompressed RLE, categories 7 and 9) and as a
+     Pascal VOC split (JPEGs, XML boxes named aeroplane and bicycle); the
+     seed-0 weights saved as model_0000000; then, every kernel call
+     recorded and each sub-run's launches counted from 0: the test CLI over
+     the concatenation ``coco_syn`` + ``synthetic_val`` with TEST.VISUAL_NUM
+     2 and TEST.GEN (result.json with the JAX CLI's keys, 2 overlays, a .mat
+     an image), ``run_inference`` over the COCO split (its evaluated
+     patches/s and ``stage_seconds``), a forward whose predictions
+     ``evaluation.evaluate`` scores on the COCO split (segm and bbox, finite,
+     segm AP above COCO_SEGM_AP_MIN and equal to Papeval's mAP within
+     EVAL_STATS_ATOL) and on the VOC split (finite mAP), one
+     ``make_tta_loader`` batch's 2 views through the forward, and 2
+     supervised iterations of the train CLI on ``coco_syn`` +
+     ``synthetic_train`` (finite losses, its images/s); K1 and K2 twice a
+     batch or view, K1 once and K2 and K3 twice a step; every recorded call
+     held against its plain version, one of each shape timed;
+ 16. a ``{"kernels": [...]}`` line with each kernel's time over its calls
      of one flagship forward (K1: the RPN's and relation-NMS's; K2: the box
      head's and the mask head's) or of one train step (K3: the box head's
      and the mask head's), its plain version's time and its bound on this
      card, K1's and K2's launches in the serving path under
-     ``launches_eval``, the K1 and K2 numbers of the train step under ``*_train`` keys,
+     ``launches_eval``, its launches in the datasets path under
+     ``launches_datasets``, the K1 and K2 numbers of the train step under ``*_train`` keys,
      every kernel's over the MT step's recorded calls under ``*_mt``
      keys (plain times too), its launches in the train CLI's loop under
      ``launches_cli`` and, under ``variants``, each variant's launches,
@@ -119,11 +140,12 @@ line is printed):
      kernel's time is the device time of the kernels its wrapper launches
      (torch.profiler), without the host's time to launch them; a plain
      version's is CUDA events around it;
- 16. the throughput in patches/s, evaluated patches/s (the serving path
+ 17. the throughput in patches/s, evaluated patches/s (the serving path
      scored serially, with the host seconds of each of its stages; the
-     pool's run and its start on a line of its own), images/s
-     (supervised, MT and the train CLI's loop) and the training loaders'
-     batches/s beside the card's name and power limit.
+     pool's run and its start on a line of its own; the datasets path's COCO
+     sweep), images/s (supervised, MT, the train CLI's loop and its 2
+     iterations on the concatenation) and the training loaders' batches/s
+     beside the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -169,6 +191,8 @@ LOSS_RTOL, GRAD_RTOL, K3_GRAD_RTOL, WG_BIAS = 1e-4, 1e-2, 1e-4, 5.0
 K1_KERNELS = ("nms_iou_mask_kernel", "nms_block_scan_kernel")
 K2_KERNELS = ("roi_align_kernel",)
 K3_KERNELS = ("roi_footprint_kernel", "roi_align_backward_kernel")
+PROFILER_TRIES = 5
+_PROFILER = {"fell_back": False}
 
 
 def phase(name, fn):
@@ -216,13 +240,27 @@ def device_ms(fn, iters=20, warmup=3):
 def kernel_ms(fn, kernels):
     """Device ms per call of the named kernels of ``csrc/`` that ``fn`` launches.
     A trace that holds no device event at all (the profiler's activity
-    buffers came back empty: seen once on an H100, on a call that the
-    same process had traced right before) is taken again, at most twice;
-    one that holds other kernels but none of these fails."""
-    for _ in range(3):
+    buffers came back empty: seen on an H100, once and then three times in
+    a row, on calls that the same process had traced right before) is taken
+    again after a pause, at most PROFILER_TRIES times in all; then the call
+    is timed by CUDA events (``cuda_ms``, which holds the host's launch time
+    too) and a line says so. A trace that holds other kernels but none of
+    these fails. After such a fallback the next call tries the profiler
+    once before it falls back."""
+    tries = 1 if _PROFILER["fell_back"] else PROFILER_TRIES
+    for i in range(tries):
         times = device_ms(fn)
         if times:
+            _PROFILER["fell_back"] = False
             break
+        if i + 1 < tries:
+            time.sleep(1.0)
+    else:
+        _PROFILER["fell_back"] = True
+        ms = cuda_ms(fn)
+        print(f"kernel_ms: no device event traced in {tries} tries; {kernels} timed by CUDA events: "
+              f"{ms} ms", flush=True)
+        return ms
     ms = sum(v for k, v in times.items() if any(re.search(rf"\b{n}\b", k) for n in kernels))
     if ms <= 0:
         raise AssertionError(f"none of {kernels} ran on the device: {sorted(times)}")
@@ -1024,6 +1062,41 @@ def recording(calls):
 
 
 @torch.no_grad()
+def held_against_plain(key, a, scaled=False):
+    """One recorded kernel call launched again and held against its plain
+    version on the same inputs (K1's flags equal, K2 ATOL + rtol |want|, K3
+    as ``k3_against_plain``); raises where they differ, else returns (the
+    call's shape, its largest error). ``scaled``: the f32 bounds of K2 and
+    K3 grow with the largest |value| past 1."""
+    from mmt_psm_tpu_torch.ops import nms as N
+    from mmt_psm_tpu_torch.ops import pooler as Pm
+
+    if key == "nms":
+        bs, vs, th = a
+        shape = f"{bs.shape[0]} x {bs.shape[1]}"
+        bad = int((N.suppress_cuda(bs, vs, th) != N.suppress_plain(bs, vs, th)).sum())
+        if bad:
+            raise AssertionError(f"K1 recorded call {shape}: {bad} flags differ from the plain version")
+        return shape, 0.0
+    if key == "roi_align":
+        feats, boxes, scales, p, g = a
+        shape = f"{boxes.shape[0]} x {boxes.shape[1]} P{p}"
+        want = Pm.multilevel_roi_align_plain(*a).float()
+        e = (Pm.multilevel_roi_align_cuda(*a).float() - want).abs()
+        rtol = BF16_RTOL if feats[0].dtype == torch.bfloat16 else 0.0
+        err = float(e.max())
+        # ``scaled``: ATOL of the largest |value| where that passes 1 (PRCNN's
+        # image-scale f32 maps reach ~1e2, where 1e-5 is a few ulps)
+        atol = ATOL * max(1.0, float(want.abs().max())) if scaled else ATOL
+        if not float((e - atol - rtol * want.abs()).max()) <= 0:
+            raise AssertionError(f"K2 recorded call {shape} {feats[0].dtype}: max err {err}")
+        return shape, err
+    grad, boxes, shapes, scales, p, g = a
+    shape = f"{boxes.shape[0]} x {boxes.shape[1]} P{p}"
+    return shape, k3_against_plain(grad, boxes, shapes, scales, p, g, f"recorded call {shape}", scaled)
+
+
+@torch.no_grad()
 def time_calls(calls, scaled=False):
     """Per kernel: each recorded call held against its plain version on the
     same inputs (the tolerances of the phases above: K1's flags equal, K2
@@ -1038,32 +1111,16 @@ def time_calls(calls, scaled=False):
     wrappers = kernel_wrappers()
     out, per_call = {}, []
     for key, a in calls:
+        shape, err = held_against_plain(key, a, scaled)
         if key == "nms":
             bs, vs, th = a
             n = bs.shape[1]
-            shape = f"{bs.shape[0]} x {n}"
-            supp = N.suppress_cuda(bs, vs, th)
-            bad = int((supp != N.suppress_plain(bs, vs, th)).sum())
-            if bad:
-                raise AssertionError(f"K1 recorded call {shape}: {bad} flags differ from the plain version")
-            err = 0.0
-            kept = (~supp & vs).float()
+            kept = (~N.suppress_cuda(bs, vs, th) & vs).float()
             ms = kernel_ms(lambda: N.suppress_cuda(*a), K1_KERNELS)
             ops = 14.0 * float((kept * (n - 1 - torch.arange(n, device=bs.device))).sum())
             nbytes = bs.numel() * 4 + 2 * vs.numel() + th.numel() * 4
         elif key == "roi_align":
             feats, boxes, scales, p, g = a
-            shape = f"{boxes.shape[0]} x {boxes.shape[1]} P{p}"
-            want = Pm.multilevel_roi_align_plain(*a).float()
-            e = (Pm.multilevel_roi_align_cuda(*a).float() - want).abs()
-            rtol = BF16_RTOL if feats[0].dtype == torch.bfloat16 else 0.0
-            err = float(e.max())
-            # ``scaled``: ATOL of the largest |value| where that passes 1 (PRCNN's
-            # image-scale f32 maps reach ~1e2, where 1e-5 is a few ulps)
-            atol = ATOL * max(1.0, float(want.abs().max())) if scaled else ATOL
-            if not float((e - atol - rtol * want.abs()).max()) <= 0:
-                raise AssertionError(f"K2 recorded call {shape} {feats[0].dtype}: max err {err}")
-            del want, e
             ms = kernel_ms(lambda: Pm.multilevel_roi_align_cuda(*a), K2_KERNELS)
             c, es = feats[0].shape[-1], feats[0].element_size()
             out_elems = boxes.shape[0] * boxes.shape[1] * p * p * c
@@ -1071,8 +1128,6 @@ def time_calls(calls, scaled=False):
             ops = out_elems * g * g * (4 * 2 + 2)
         else:
             grad, boxes, shapes, scales, p, g = a
-            shape = f"{boxes.shape[0]} x {boxes.shape[1]} P{p}"
-            err = k3_against_plain(grad, boxes, shapes, scales, p, g, f"recorded call {shape}", scaled)
             ms = kernel_ms(lambda: Pm.multilevel_roi_align_backward_cuda(*a), K3_KERNELS)
             es = grad.element_size()
             nbytes = grad.numel() * es + boxes.numel() * 5 + sum(math.prod(sh) for sh in shapes) * es
@@ -1662,6 +1717,255 @@ def variants_f32_vs_plain(dev):
     torch.backends.cudnn.allow_tf32 = True
 
 
+# --------------------------------------------------------- the datasets path
+# the serving phase's windows and the model's own instances written twice: as
+# a COCO-format split (labels 1 and 2 as the JSON's category ids 7 and 9, so an
+# off-by-one id mapping shows) and as a Pascal VOC split whose class names
+# have the labels' indexes
+DATASET_CATEGORY_IDS = {1: 7, 2: 9}
+VOC_NAMES = {1: "aeroplane", 2: "bicycle"}
+DATASETS_VISUAL_NUM, DATASETS_TRAIN_ITERS, TTA_K = 2, 2, 2
+# COCO segm AP on those gt: the exact half gives about 0.3 (see datasets_path);
+# COCO AP against Papeval's mAP of the same images: a mask pixel that the
+# forwards' float noise flips moves an IoU by under 1e-2
+COCO_SEGM_AP_MIN, EVAL_STATS_ATOL = 0.25, 1e-2
+# per batch of a forward: K1 for the RPN and relation-NMS, K2 for the box and
+# mask heads; per supervised step K1 once, K2 and K3 twice
+FORWARD_LAUNCHES = {"nms": 2, "roi_align": 2, "roi_align_backward": 0}
+STEP_LAUNCHES = {"nms": 1, "roi_align": 2, "roi_align_backward": 2}
+
+
+def write_coco_split(items, root):
+    """``items`` (image, boxes, labels, masks) in the catalog's ``coco_*``
+    layout: ``root/images/w<i>.png`` and ``root/annotations.json``, each
+    mask as uncompressed RLE from the C++ library's column-major encoder."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from mmt_psm_tpu_torch.evaluation._native import rle_encode
+
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    data = {"images": [], "annotations": [],
+            "categories": [{"id": c, "name": f"class {lab}"} for lab, c in DATASET_CATEGORY_IDS.items()]}
+    for i, it in enumerate(items):
+        h, w = it["masks"].shape[1:]
+        Image.fromarray(np.asarray(it["image"][:h, :w])).save(os.path.join(root, "images", f"w{i}.png"))
+        data["images"].append({"id": i + 1, "file_name": f"w{i}.png", "height": int(h), "width": int(w)})
+        for (x1, y1, x2, y2), lab, m in zip(it["boxes"].tolist(), it["labels"].tolist(), it["masks"]):
+            data["annotations"].append({
+                "id": len(data["annotations"]) + 1, "image_id": i + 1, "category_id": DATASET_CATEGORY_IDS[lab],
+                "iscrowd": 0, "area": int(np.count_nonzero(m)), "bbox": [x1, y1, x2 - x1 + 1, y2 - y1 + 1],
+                "segmentation": {"size": [int(h), int(w)], "counts": rle_encode(m).tolist()}})
+    with open(os.path.join(root, "annotations.json"), "w") as f:
+        json.dump(data, f)
+
+
+def write_voc_split(items, root, split="test"):
+    """``items`` as a Pascal VOC split: JPEGs, XML boxes (1-based pixel
+    indexes, as VOC writes them) named by ``VOC_NAMES``, none difficult."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    for d in ("Annotations", "JPEGImages", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for i, it in enumerate(items):
+        h, w = it["image"].shape[:2]
+        Image.fromarray(np.asarray(it["image"])).save(os.path.join(root, "JPEGImages", f"w{i}.jpg"))
+        objs = "".join(
+            f"<object><name>{VOC_NAMES[lab]}</name><difficult>0</difficult><bndbox><xmin>{int(x1) + 1}</xmin>"
+            f"<ymin>{int(y1) + 1}</ymin><xmax>{int(x2) + 1}</xmax><ymax>{int(y2) + 1}</ymax></bndbox></object>"
+            for (x1, y1, x2, y2), lab in zip(it["boxes"].tolist(), it["labels"].tolist()))
+        with open(os.path.join(root, "Annotations", f"w{i}.xml"), "w") as f:
+            f.write(f"<annotation><size><width>{w}</width><height>{h}</height><depth>3</depth></size>{objs}"
+                    f"</annotation>")
+    with open(os.path.join(root, "ImageSets", "Main", f"{split}.txt"), "w") as f:
+        f.write("".join(f"w{i}\n" for i in range(len(items))))
+
+
+def predictions_of(model, ds, batch, canvas):
+    """One prediction dict an item of ``ds`` (boxes, scores, labels, valid,
+    float16-rounded mask probabilities widened to f32, image_hw), from the
+    engine's device stage: what ``evaluation.evaluate`` takes."""
+    import numpy as np
+
+    from mmt_psm_tpu_torch.data.loader import make_test_loader
+    from mmt_psm_tpu_torch.engine.inference import DeviceStage
+
+    stage, preds = DeviceStage(model), []
+    for b in make_test_loader(ds, batch, canvas, max_gt=EVAL_MAX_GT, min_size=canvas, max_size=canvas, raw_u8=True):
+        boxes, scores, labels, valid, masks, _ = stage.fetch(stage.dispatch(b))
+        for i in range(b["n_real"]):
+            preds.append({"boxes": boxes[i], "scores": scores[i], "labels": labels[i], "valid": valid[i],
+                          "masks": masks[i].astype(np.float32), "image_hw": tuple(b["image_size"][i].tolist())})
+    return preds
+
+
+def datasets_path(dev, stats, eval_ds):
+    """The serve CLI, the dataset-level evaluators and the train CLI over
+    COCO-format, VOC and concatenated datasets at the flagship's width
+    (1024 canvas, bf16, batch 4, seed-0 weights), with overlays, .mat export
+    and a TTA batch; every kernel call recorded, each sub-run's launches
+    counted from 0, then every call held against its plain version."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from mmt_psm_tpu_torch import build_model
+    from mmt_psm_tpu_torch.data.catalog import DatasetCatalog, build_datasets
+    from mmt_psm_tpu_torch.data.coco import COCODataset
+    from mmt_psm_tpu_torch.data.concat import ConcatDataset
+    from mmt_psm_tpu_torch.data.loader import make_test_loader, make_tta_loader
+    from mmt_psm_tpu_torch.data.voc import PascalVOCDataset
+    from mmt_psm_tpu_torch.engine import inference as I
+    from mmt_psm_tpu_torch.evaluation import evaluate
+    from mmt_psm_tpu_torch.models.detector import FLAGSHIP_CONFIG
+    from mmt_psm_tpu_torch.tools import test_net, train_mean_teacher
+    from mmt_psm_tpu_torch.utils.checkpoint import Checkpointer
+
+    model = build_model(device=dev, seed=0)
+    t = time.perf_counter()
+    items = own_instances_as_gt(model, eval_ds, BATCH, CANVAS, EVAL_MAX_GT)
+    calls, launches, runs = [], {}, {}
+
+    def counted(name, want, fn):
+        """``fn()`` with every count set to 0 just before it and read just
+        after (the counts sit on the recorders)."""
+        counters = _reset_counters()
+        t_run = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        runs[name] = time.perf_counter() - t_run
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        if launches[name] != want:
+            raise AssertionError(f"{name}: launches {launches[name]}, expected {want}")
+        return out
+
+    def times(n, per):
+        return {k: n * v for k, v in per.items()}
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(DatasetCatalog, "DATA_DIR", tmp), \
+            mock.patch.dict(DatasetCatalog.DATASETS, {"voc_syn": {"factory": "PascalVOCDataset", "split": "test",
+                                                                  "data_dir": os.path.join(tmp, "voc")}}):
+        write_coco_split(items, os.path.join(tmp, "coco_syn"))
+        write_voc_split(items, os.path.join(tmp, "voc"))
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        Checkpointer(ckpt_dir).save("model_0000000", {"model": model.state_dict()})
+        write_s = time.perf_counter() - t
+        coco_ds, voc_ds = build_datasets("coco_syn"), build_datasets(("voc_syn",))
+        served = build_datasets(("coco_syn", "synthetic_val"))
+        if not (isinstance(coco_ds, COCODataset) and isinstance(voc_ds, PascalVOCDataset)
+                and isinstance(served, ConcatDataset) and len(coco_ds) == len(voc_ds) == len(items)):
+            raise AssertionError(f"catalog: {type(coco_ds).__name__}, {type(voc_ds).__name__}, "
+                                 f"{type(served).__name__}")
+        if coco_ds.json_category_id_to_contiguous_id != {7: 1, 9: 2}:
+            raise AssertionError(f"category ids {coco_ds.json_category_id_to_contiguous_id}")
+        n_served = -(-len(served) // BATCH)
+        n_coco = -(-len(coco_ds) // BATCH)
+        with recording(calls):
+            # serving: the test CLI over the concatenation, overlays and .mat export on
+            out_dir = os.path.join(tmp, "out")
+            rows = counted("test CLI", times(n_served, FORWARD_LAUNCHES), lambda: test_net.main([
+                "--config-file", FLAGSHIP_CONFIG, "--ckpt-dir", ckpt_dir, "--output-dir", out_dir,
+                "TEST.IMS_PER_BATCH", str(BATCH), "TEST.EVAL_WORKERS", "0", "DATASETS.MODE_IN_TEST", "test",
+                "DATASETS.TEST", '("coco_syn", "synthetic_val")', "TEST.VISUAL_NUM", str(DATASETS_VISUAL_NUM),
+                "TEST.GEN", "True"]))
+            # the COCO split alone through the engine, scored serially: its rate
+            coco_stats, coco_timing = counted("COCO sweep", times(n_coco, FORWARD_LAUNCHES), lambda: I.run_inference(
+                model, make_test_loader(coco_ds, BATCH, CANVAS, max_gt=EVAL_MAX_GT, min_size=CANVAS,
+                                        max_size=CANVAS, raw_u8=True), eval_workers=0))
+            preds = counted("predictions", times(n_coco, FORWARD_LAUNCHES),
+                            lambda: predictions_of(model, coco_ds, BATCH, CANVAS))
+            tta = next(make_tta_loader(coco_ds, BATCH, CANVAS, tta_k=TTA_K, max_gt=EVAL_MAX_GT, min_size=CANVAS,
+                                       max_size=CANVAS))
+            sizes = torch.from_numpy(tta["image_size"]).to(dev)
+            tta_dets = counted("TTA", times(TTA_K, FORWARD_LAUNCHES), lambda: [
+                model(torch.from_numpy(tta["tta_views"][:, k]).to(dev), sizes) for k in range(TTA_K)])
+            # training: supervised iterations (START_MT above MAX_ITER) on a concatenation
+            run_dir = os.path.join(tmp, "run")
+            trained = counted("train CLI", times(DATASETS_TRAIN_ITERS, STEP_LAUNCHES), lambda: train_mean_teacher.main([
+                "--skip-test", "--output-dir", run_dir, "DATASETS.TRAIN", '("coco_syn", "synthetic_train")',
+                "DATASETS.NO_LABEL", "False", "MT.START_MT", str(DATASETS_TRAIN_ITERS + 10),
+                "SOLVER.MAX_ITER", str(DATASETS_TRAIN_ITERS), "TEST.EVAL_WORKERS", "0"]))
+
+        row = rows["model_0000000"]
+        if set(row) != RESULT_KEYS:
+            raise AssertionError(f"result.json keys {sorted(row)}")
+        with open(os.path.join(out_dir, "result.json")) as f:
+            if json.load(f) != rows:
+                raise AssertionError("result.json differs from the CLI's rows")
+        vis = sorted(os.listdir(os.path.join(out_dir, "vis_model_0000000")))
+        mats = sorted(os.listdir(os.path.join(out_dir, "mat_model_0000000")))
+        if vis != [f"vis_{i:04d}.png" for i in range(DATASETS_VISUAL_NUM)] or len(mats) != len(served):
+            raise AssertionError(f"overlays {vis}, {len(mats)} .mat files for {len(served)} images")
+        scored(coco_stats, "COCO sweep")
+        if len(preds) != len(coco_ds):
+            raise AssertionError(f"{len(preds)} predictions for {len(coco_ds)} images")
+        coco = {t_: evaluate(coco_ds, preds, iou_type=t_) for t_ in ("segm", "bbox")}
+        voc = evaluate(voc_ds, preds)
+        finite = [v for r in coco.values() for k, v in r.items() if k != "AP_per_class"] + [voc["map"]]
+        # every other gt instance is its detection moved 2 px, which a random-weight
+        # mask matches at IoU 0.3-0.5 only: segm AP sits near 0.3, not above 0.5
+        if not all(math.isfinite(v) for v in finite) or not coco["segm"]["AP"] > COCO_SEGM_AP_MIN:
+            raise AssertionError(f"COCO {coco}, VOC mAP {voc['map']}: expected finite, segm AP above "
+                                 f"{COCO_SEGM_AP_MIN}")
+        # the COCO evaluator at Papeval's max_dets (200) against Papeval's mAP of
+        # the sweep's own forward of the same images: the same AP by two evaluators
+        papeval_ap = evaluate(coco_ds, preds, iou_type="segm", max_dets=200)["AP"]
+        if not abs(papeval_ap - coco_stats["mAP"]["all"]) <= EVAL_STATS_ATOL:
+            raise AssertionError(f"COCO segm AP {papeval_ap} against Papeval's mAP {coco_stats['mAP']['all']}")
+        if not np.array_equal(tta["tta_views"][:, 0], tta["image"]):
+            raise AssertionError("TTA view 0 is not the batch's image")
+        for d in tta_dets:
+            if not (torch.isfinite(d.boxes).all() and torch.isfinite(d.masks).all() and bool(d.valid.any())):
+                raise AssertionError("TTA view: non-finite or no valid detection")
+        loop = trained["trainer"]
+        losses = {k: list(m.deque) for k, m in loop.meters.meters.items() if k != "time"}
+        if len(losses["loss_total"]) != DATASETS_TRAIN_ITERS or "mt_weight" in losses or \
+                not all(math.isfinite(x) for v in losses.values() for x in v):
+            raise AssertionError(f"train CLI losses {losses}")
+        width = loop.steps.model.config
+        if (width.image_size, width.compute_dtype, int(loop.cfg.SOLVER.IMS_PER_BATCH)) != (CANVAS, "bfloat16", BATCH):
+            raise AssertionError(f"not the flagship's width: {width.image_size} {width.compute_dtype}")
+        train_s = sum(loop.meters.meters["time"].deque)
+    # every recorded call held against its plain version; one of each shape timed
+    t = time.perf_counter()
+    errs, firsts = {}, {}
+    for i, (key, a) in enumerate(calls):
+        shape, err = held_against_plain(key, a)
+        errs[key] = max(errs.get(key, 0.0), err)
+        firsts.setdefault((key, shape), i)
+    n_calls = len(calls)
+    timed, per_call = time_calls([calls[i] for i in firsts.values()])
+    del calls
+    check_s = time.perf_counter() - t
+    total = {k: sum(v[k] for v in launches.values()) for k in FORWARD_LAUNCHES}
+    for k, v in total.items():
+        stats[k]["launches_datasets"] = v
+    print(f"datasets bf16: {len(items)} windows of {CANVAS}px written as a COCO split (categories "
+          f"{DATASET_CATEGORY_IDS}, RLE) and a VOC split ({VOC_NAMES}) in {write_s:.3f} s; test CLI over "
+          f"coco_syn + synthetic_val ({len(served)} images, {DATASETS_VISUAL_NUM} overlays, {len(mats)} .mat) in "
+          f"{runs['test CLI']:.3f} s: {json.dumps(row)}; launches {json.dumps(launches)}", flush=True)
+    print(f"datasets bf16 evaluation: COCO segm AP/AP50/AP75 {coco['segm']['AP']}/{coco['segm']['AP50']}/"
+          f"{coco['segm']['AP75']}, bbox {coco['bbox']['AP']}/{coco['bbox']['AP50']}/{coco['bbox']['AP75']}; "
+          f"at max_dets 200 {papeval_ap} (Papeval's mAP of the sweep {coco_stats['mAP']['all']}); "
+          f"VOC mAP {voc['map']} (AP by class {voc['ap'].tolist()}); Papeval of the COCO sweep "
+          f"{json.dumps(coco_stats)}; TTA {TTA_K} views, valid per image "
+          f"{[[int(v) for v in d.valid.sum(1)] for d in tta_dets]}", flush=True)
+    print(f"datasets bf16 kernel calls: {n_calls}, each held against its plain version (max abs err "
+          f"{json.dumps(errs)}) in {check_s:.3f} s; one of each shape (kernel, shape, kernel ms, plain ms, max abs "
+          f"err, bound ms): {json.dumps(per_call)}", flush=True)
+    print(f"datasets bf16 train CLI: {DATASETS_TRAIN_ITERS} supervised iterations on coco_syn + synthetic_train at "
+          f"{CANVAS}px, batch {BATCH}: {DATASETS_TRAIN_ITERS * BATCH / train_s:.3f} images/s over its iterations "
+          f"({train_s:.3f} s, the first with its wait for a batch), losses {json.dumps(losses)}", flush=True)
+    return coco_timing, DATASETS_TRAIN_ITERS * BATCH / train_s, timed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1687,6 +1991,7 @@ def main() -> int:
         "train CLI bf16", lambda: train_cli_path(dev, stats, images_per_s, mt_images_per_s, eval_ds))
     variant_rates = phase("variants bf16", lambda: variants_path(dev, stats, eval_ds))
     phase("variants f32 vs plain", lambda: variants_f32_vs_plain(dev))
+    coco_timing, datasets_train_rate, _ = phase("datasets bf16", lambda: datasets_path(dev, stats, eval_ds))
     print(f"throughput: {patches_per_s:.3f} patches/s at {CANVAS}px, batch {BATCH}, bf16 on {card}", flush=True)
     print(f"eval throughput: {eval_timing['images_per_sec']} evaluated patches/s at {CANVAS}px, batch {BATCH}, bf16, "
           f"host paste and Papeval included, scored serially; stage_seconds "
@@ -1704,6 +2009,10 @@ def main() -> int:
                                  if "evaluated_patches_per_s" in row else "")
               + (f", {row['mt_images_per_s']:.3f} MT labeled images/s" if "mt_images_per_s" in row else "")
               + f" at {CANVAS}px, batch {BATCH}, bf16 on {card}", flush=True)
+    print(f"datasets throughput: {coco_timing['images_per_sec']} evaluated patches/s of the COCO sweep at {CANVAS}px, "
+          f"batch {BATCH}, bf16, scored serially; stage_seconds {json.dumps(coco_timing['stage_seconds'])} of "
+          f"{coco_timing['seconds']} s; train CLI {datasets_train_rate:.3f} images/s over {DATASETS_TRAIN_ITERS} "
+          f"supervised iterations on {card}", flush=True)
     print(json.dumps({"kernels": [stats["nms"], stats["roi_align"], stats["roi_align_backward"]]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,10 @@ mean teacher through the host loop ``engine.trainer.MTTrainer``, with
 checkpoints and resume. ``models.variants`` names every other graph the
 config builds (the plain Mask R-CNN, set-NMS, the mask relation variants,
 RPN_ONLY, R-50-C4, PRCNN, backbone recomputation), for ``model_from_cfg``
-and the trainers.
+and the trainers. ``data.catalog.build_datasets`` resolves Pap, synthetic,
+COCO-format, VOC and file-list datasets (several names concatenated), and
+``evaluation.evaluate`` scores predictions by the dataset's type (COCO AP,
+VOC mAP, Papeval).
 
 The names below load ``models`` (and torch) at first use, so the host eval
 modules (``evaluation``, ``engine.paste``, ``engine._eval_worker``) import

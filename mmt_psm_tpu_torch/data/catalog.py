@@ -6,8 +6,12 @@ The labeled pap splits map to ``PapDataset`` over an on-disk layout under
 DATA_DIR (``pap/<split>/images/*.png`` and
 ``pap/<split>/masks/<image>/<instance>_<label>.png``), the unlabeled one
 to ``PapUnlabeledDataset`` over ``pap/no_label/*.png`` (and ``*.jpg``);
-``synthetic_*`` give a self-contained set. The COCO-format entries, and
-several names concatenated, wait for ROADMAP item 20.
+``synthetic_*`` give a self-contained set. ``COCODataset`` entries name an
+image directory and an annotation JSON under DATA_DIR, and any unknown
+``coco_<name>`` with ``DATA_DIR/coco_<name>/annotations.json`` resolves to
+``COCODataset`` over ``DATA_DIR/coco_<name>/images``. ``ListDataset`` and
+``PascalVOCDataset`` entries are registered with ``register``.
+``build_datasets`` concatenates several names.
 """
 
 from __future__ import annotations
@@ -39,10 +43,19 @@ class DatasetCatalog:
     }
 
     @classmethod
+    def register(cls, name: str, **attrs):
+        """Add an entry at run time (user datasets, tests)."""
+        cls.DATASETS[name] = attrs
+
+    @classmethod
     def get(cls, name: str):
         if name not in cls.DATASETS:
-            if name.startswith("coco_"):
-                raise NotImplementedError(f"COCO-format datasets ({name!r}) are not ported yet (ROADMAP item 20)")
+            # the on-disk convention of any other coco_* name
+            root = os.path.join(cls.DATA_DIR, name)
+            if name.startswith("coco_") and os.path.isfile(os.path.join(root, "annotations.json")):
+                from .coco import COCODataset
+
+                return COCODataset(os.path.join(root, "annotations.json"), os.path.join(root, "images"))
             raise KeyError(f"unknown dataset {name!r}; known: {sorted(cls.DATASETS)}")
         attrs = dict(cls.DATASETS[name])
         factory = attrs.pop("factory")
@@ -58,8 +71,23 @@ class DatasetCatalog:
             patches = sorted(os.path.join(root, f) for f in os.listdir(root)
                              if f.endswith((".png", ".jpg"))) if os.path.isdir(root) else []
             return PapUnlabeledDataset(patches)
+        if factory == "COCODataset":
+            from .coco import COCODataset
+
+            ann, root = (p if os.path.isabs(p) else os.path.join(cls.DATA_DIR, p)
+                         for p in (attrs["ann_file"], attrs["root"]))
+            return COCODataset(ann, root, attrs.get("remove_images_without_annotations", True))
+        if factory == "ListDataset":
+            from .concat import ListDataset
+
+            return ListDataset(attrs["image_paths"], attrs.get("annotations"))
+        if factory == "PascalVOCDataset":
+            from .voc import PascalVOCDataset
+
+            return PascalVOCDataset(attrs.get("data_dir", os.path.join(cls.DATA_DIR, "voc")), attrs["split"],
+                                    attrs.get("use_difficult", False))
         if factory != "PapDataset":
-            raise NotImplementedError(f"{factory} datasets ({name!r}) are not ported yet (ROADMAP item 20)")
+            raise KeyError(f"dataset {name!r}: unknown factory {factory!r}")
         return cls._pap_from_disk(attrs)
 
     @classmethod
@@ -99,13 +127,15 @@ class DatasetCatalog:
 
 
 def build_datasets(names):
-    """One catalog name (or a one-name list) -> its dataset. Several names
-    concatenated (the reference's data/build.py:60-66) wait for item 20."""
+    """Catalog names -> one dataset, a ``ConcatDataset`` of them where
+    several are given (the reference's data/build.py:60-66)."""
     if isinstance(names, str):
         names = (names,)
-    names = tuple(names)
-    if not names:
+    datasets = [DatasetCatalog.get(n) for n in names]
+    if not datasets:
         raise ValueError("no dataset names given (cfg.DATASETS.* is empty)")
-    if len(names) > 1:
-        raise NotImplementedError(f"concatenating datasets {names} is not ported yet (ROADMAP item 20)")
-    return DatasetCatalog.get(names[0])
+    if len(datasets) == 1:
+        return datasets[0]
+    from .concat import ConcatDataset
+
+    return ConcatDataset(datasets)

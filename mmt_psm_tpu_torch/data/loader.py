@@ -1,5 +1,5 @@
 """Batch assembly on the host (the port's copy of
-``mmt_psm_tpu/data/loader.py`` without its TTA loader, after the
+``mmt_psm_tpu/data/loader.py``, after the
 reference's DataLoader and collators, maskrcnn_benchmark/data/build.py:
 143-318 and collate_batch.py:5-76).
 
@@ -14,7 +14,9 @@ gt padded to MAX_GT rows.
   views (BatchCollatorWoLabelK, collate_batch.py:58-76);
 * ``make_test_loader``: one pass, masks ragged (only the host reads them),
   the last batch padded by repeating its last sample with ``n_real``
-  counting the real ones.
+  counting the real ones;
+* ``make_tta_loader``: one pass of test-time-augmentation batches, K
+  colour views a sample under ``tta_views`` (TTABatchCollator).
 
 ``prefetch`` assembles batches ahead in a background thread.
 """
@@ -191,6 +193,52 @@ def make_test_loader(
                 # eval masks stay ragged/unpadded — only the host reads them
                 samples.append(pad_to_canvas(s, canvas, max_gt, mask_size, pad_masks=False))
             batch = _stack(samples)
+            batch["n_real"] = n_real
+            yield batch
+
+    return gen()
+
+
+def make_tta_loader(
+    dataset,
+    batch_size: int,
+    canvas: int,
+    tta_k: int = 2,
+    max_gt: int = 64,
+    mask_size: int | None = None,
+    min_size: int = 800,
+    max_size: int = 1333,
+    seed: int = 3,
+):
+    """Single-pass test-time-augmentation batches (TEST.TTA; the reference's
+    TTABatchCollator and its tta transforms, data/build.py:301-302,
+    transforms/build.py:65-79): per sample one resize and ``tta_k``
+    jitter-and-erase views, stacked f32 [B, K, canvas, canvas, 3] under
+    "tta_views", view 0 also as "image"; the last batch padded as
+    ``make_test_loader`` pads it. The reference's model never reads its
+    ``tta`` flag (generalized_rcnn.py:42), so TTA is collation only: the
+    caller runs each view through the model and merges as it chooses."""
+    rng = np.random.default_rng(seed)
+
+    def gen():
+        n = len(dataset)
+        for start in range(0, n, batch_size):
+            idxs = list(range(start, min(start + batch_size, n)))
+            n_real = len(idxs)
+            idxs += [idxs[-1]] * (batch_size - n_real)
+            samples, views = [], []
+            for idx in idxs:
+                s = T.tta_transform(dataset[int(idx)], rng, tta_k, min_size, max_size)
+                vs = s.pop("views")
+                h, w = vs[0].shape[:2]
+                padded = np.zeros((len(vs), canvas, canvas, 3), np.float32)
+                for j, v in enumerate(vs):
+                    padded[j, :h, :w] = v
+                views.append(padded)
+                s["image"] = vs[0]
+                samples.append(pad_to_canvas(s, canvas, max_gt, mask_size))
+            batch = _stack(samples)
+            batch["tta_views"] = np.stack(views)
             batch["n_real"] = n_real
             yield batch
 

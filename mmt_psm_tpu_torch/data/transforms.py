@@ -1,5 +1,5 @@
 """Image transforms on the host, numpy (the port's copy of
-``mmt_psm_tpu/data/transforms.py`` without its TTA views, after the
+``mmt_psm_tpu/data/transforms.py``, after the
 reference's maskrcnn_benchmark/data/transforms/transforms.py:10-205).
 
 A sample is {"image": u8 [H, W, 3] RGB, "boxes": [M, 4], "labels",
@@ -13,7 +13,8 @@ The training pipelines: ``source_transform`` (resize, a flip with
 probability 1/2, ``color_jitter``: brightness and contrast 0.15, hue 0.05
 through an HSV round trip, then ``random_erasing``: 0-10 pixel-noise
 patches of 0.1-0.4% of the image) and ``unlabeled_transform`` (one shared
-resize and flip, then K independent jitter-and-erase views). Each draws
+resize and flip, then K independent jitter-and-erase views); at test time
+``tta_transform`` gives K jitter-and-erase views of one resize. Each draws
 from the caller's ``np.random.Generator`` in the JAX package's order, so
 the same seed gives the same arrays.
 """
@@ -225,4 +226,19 @@ def test_transform(sample: dict, min_size=800, max_size=1333) -> dict:
     sample = resize_sample(sample, min_size, max_size)
     out = dict(sample)
     out["image"] = normalize_bgr255(sample["image"])
+    return out
+
+
+def tta_transform(sample: dict, rng: np.random.Generator, k: int, min_size=800, max_size=1333) -> dict:
+    """Test-time augmentation (TEST.TTA, transforms/build.py:65-79): one
+    resize, no flip, then ``k`` jitter-and-erase views under "views"; the
+    resized targets stay for scoring."""
+    sample = resize_sample(sample, min_size, max_size)
+    views = []
+    for _ in range(k):
+        img = color_jitter(sample["image"], rng)
+        img = random_erasing(img, rng, 0.9)
+        views.append(normalize_bgr255(img))
+    out = dict(sample)
+    out["views"] = views
     return out

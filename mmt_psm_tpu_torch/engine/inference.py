@@ -11,7 +11,9 @@ of each class (``models/box_head.py::set_nms_filter``). The host pastes
 the masks into image space at threshold 0.5 (``engine/paste.py``) and scores
 the box-cropped instance masks against the ground truth
 (``evaluation/pap_eval.py``), in this process or in a pool of spawned
-worker processes (``engine/_eval_worker.py``).
+worker processes (``engine/_eval_worker.py``). An image whose overlay or
+``.mat`` label map is written (``utils/visual.py``, ``utils/mat_output.py``)
+is pasted and scored in this process.
 
 ``DeviceStage`` runs the forwards. On the card it copies each batch's
 canvases (raw RGB uint8 from ``make_test_loader(raw_u8=True)``) through
@@ -39,6 +41,8 @@ from ..data.transforms import PIXEL_MEAN_BGR
 from ..evaluation import _native
 from ..evaluation.pap_eval import PapEvaluator
 from ..models.box_head import set_nms_filter
+from ..utils.mat_output import save_mat_output
+from ..utils.visual import overlay_instances
 from . import _eval_worker
 from .paste import detections_to_instseg, gt_to_instseg
 
@@ -205,14 +209,17 @@ def run_inference(
     workers finish in. -1: one per spare core, serial without spare cores.
     prefetch_depth: batches assembled ahead in a thread (``data.loader.
     prefetch``); 0 synchronous, -1 auto.
-    ``mesh``, overlays (``visual_dir``) and ``.mat`` export (``mat_dir``)
-    are not ported yet and raise.
+    visual_num, visual_dir: the first ``visual_num`` images' overlays as
+    ``visual_dir/vis_<n:04d>.png`` (TEST.VISUAL_NUM, the reference's
+    pap_eval.py:49-77), drawn over the raw uint8 window.
+    mat_dir: every image's instance label map as
+    ``mat_dir/img_<n:04d>.mat`` (TEST.GEN, the reference's ISBI export,
+    tools/test_net.py:109-121).
+    ``mesh`` is not ported yet and raises.
     """
     if mesh is not None or (torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1):
         raise NotImplementedError("sharded evaluation and its gather across processes are not ported yet "
                                   "(ROADMAP item 19)")
-    if (visual_dir and visual_num) or mat_dir:
-        raise NotImplementedError("prediction overlays and .mat export are not ported yet (ROADMAP item 20)")
     stage = DeviceStage(model)
     if eval_workers < 0:
         ncpu = usable_cpus()
@@ -220,8 +227,9 @@ def run_inference(
     evaluator = PapEvaluator(categories=categories, max_dets=max_dets)
     t0, t0_wall = time.perf_counter(), time.time()
     pool, pings = _start_pool(eval_workers) if eval_workers > 0 else (None, [])
-    # per image in order, a worker's Future: the accumulation order, and so
-    # the ties of the mergesort PR curves, do not depend on the workers
+    # per image in order, a worker's Future or the rows scored here: the
+    # accumulation order, and so the ties of the mergesort PR curves, do not
+    # depend on the workers
     result_slots = []
     n_images = 0
     acc = {"loader": 0.0, "device": 0.0, "gt": 0.0, "score": 0.0}
@@ -264,20 +272,35 @@ def run_inference(
                 t_s = time.perf_counter()
                 acc["gt"] += t_s - t_g
                 hw = tuple(np.asarray(batch["image_size"][i]).tolist())
-                if pool is not None:
+                visual = bool(visual_dir) and n_images < visual_num
+                if pool is not None and not (visual or mat_dir):
                     result_slots.append(pool.submit(_eval_worker.eval_one, (
                         boxes[i], scores[i], labels[i], v_i, masks[i] if masks16 is None else masks16[i],
                         hw, gt, evaluator.categories, evaluator.max_dets, evaluator.use_iou)))
                 else:
-                    evaluator.add_image(detections_to_instseg(boxes[i], scores[i], labels[i], v_i, masks[i], hw),
-                                        gt)
+                    dt = detections_to_instseg(boxes[i], scores[i], labels[i], v_i, masks[i], hw)
+                    if visual:
+                        from PIL import Image
+
+                        # the raw uint8 RGB window of the device stage's loader
+                        os.makedirs(visual_dir, exist_ok=True)
+                        Image.fromarray(overlay_instances(np.asarray(batch["image"][i][: hw[0], : hw[1]]),
+                                                          {"masks": dt})).save(
+                            os.path.join(visual_dir, f"vis_{n_images:04d}.png"))
+                    if mat_dir:
+                        save_mat_output(dt, hw[0], hw[1], os.path.join(mat_dir, f"img_{n_images:04d}.mat"))
+                    before = len(evaluator.results)
+                    evaluator.add_image(dt, gt)
+                    if pool is not None:
+                        result_slots.append(evaluator.results[before:])
+                        del evaluator.results[before:]
                 acc["score"] += time.perf_counter() - t_s
                 n_images += 1
             batch, pending = next_batch, next_pending
         if pool is not None:
             t = time.perf_counter()
             for slot in result_slots:
-                evaluator.results.extend(slot.result())
+                evaluator.results.extend(slot if isinstance(slot, list) else slot.result())
             acc["score"] += time.perf_counter() - t
             pool_start = max(p.result() for p in pings) - t0_wall
     finally:

@@ -2,7 +2,8 @@
 ``mmt_psm_tpu/engine/predictor.py``, after the reference's COCODemo,
 demo/predictor.py:13-358): resize and normalize a raw RGB uint8 image,
 run the model on the device of its parameters, map the detections back to
-the image's own coordinates and paste their masks.
+the image's own coordinates and paste their masks; ``run_on_image`` draws
+them over the image (``utils/visual.py``).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from ..data import transforms as T
+from ..utils.visual import overlay_instances
 from .paste import detections_to_instseg
 
 CATEGORIES = ["__background", "cytoplasm", "nuclei"]  # Pap.py:107-111
@@ -57,6 +59,6 @@ class CellDemo:
         }
 
     def run_on_image(self, image_rgb: np.ndarray) -> np.ndarray:
-        """Prediction drawn over the image (run_on_opencv_image,
-        predictor.py:161-182): the overlay waits for ``utils/visual.py``."""
-        raise NotImplementedError("prediction overlays are not ported yet (ROADMAP item 20)")
+        """The prediction drawn over the image, u8 [H, W, 3] RGB
+        (run_on_opencv_image, predictor.py:161-182)."""
+        return overlay_instances(image_rgb, self.compute_prediction(image_rgb))

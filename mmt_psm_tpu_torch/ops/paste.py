@@ -7,8 +7,10 @@ thresholded at 0.5 and summed into a canvas. Instead of a resize per box,
 the bilinear sample is evaluated at every canvas pixel, on fixed shapes
 with no host sync. ``paste_integral`` gives the mean teacher's MGD
 "integral foreground mask" (generalized_rcnn.py:129-131) at a reduced
-canvas resolution. Plain PyTorch: the JAX function is XLA code, with no
-Pallas kernel. ``paste_masks`` (the eval Masker) comes with the host eval.
+canvas resolution; ``paste_masks`` gives each RoI's pasted probabilities
+(the Masker of a graph with POSTPROCESS_MASKS; the engine pastes on the
+host instead, ``engine/paste.py``). Plain PyTorch: the JAX functions are
+XLA code, with no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -77,3 +79,11 @@ def paste_integral(masks, boxes, valid, out_size: int, stride: float) -> torch.T
         hit = (s >= THRESHOLD).float() * valid[:, sl].reshape(b * r, 1, 1)
         out += hit.reshape(b, r, out_size, out_size).sum(1)
     return out.reshape(*lead, out_size, out_size)
+
+
+def paste_masks(masks, boxes, valid, out_size: int, stride: float = 1.0) -> torch.Tensor:
+    """Each RoI's pasted probabilities f32 [K, out, out], neither thresholded
+    nor summed: masks [K, M, M], boxes [K, 4] image coordinates, valid [K]
+    (an invalid RoI's map is 0)."""
+    ys = (torch.arange(out_size, dtype=torch.float32, device=masks.device) + 0.5) * stride - 0.5
+    return _sample(masks.float(), boxes.float(), ys, ys) * valid.float()[:, None, None]

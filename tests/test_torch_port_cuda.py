@@ -451,3 +451,85 @@ def test_variant_launches_and_never_syncs(dev, name):
     losses = trainer.step(batch)
     assert {k: fn.launches for k, fn in counters.items()} == VARIANT_LAUNCHES[name][1]
     assert all(torch.isfinite(v) for v in losses.values())
+
+
+@pytest.fixture
+def small_served(dev):
+    """The flagship at a 256 canvas on the card, seed-0 weights, with 4
+    synthetic windows whose gt are its own instances (``chip_smoke``'s
+    ``datasets bf16`` phase at a small size)."""
+    from mmt_psm_tpu_torch.data.pap import synthetic_slide_dataset
+    from mmt_psm_tpu_torch.models.detector import load_config, model_from_cfg
+
+    from mmt_psm_tpu_torch.models.detector import FLAGSHIP_CONFIG
+
+    model = model_from_cfg(load_config(FLAGSHIP_CONFIG, ["TPU.IMAGE_SIZE", "256"]), dev)
+    ds = synthetic_slide_dataset(seed=7, num_slides=4, slide_size=256, win_size=256, overlap=0.0, is_train=False,
+                                 radius_range=(0.04, 0.09))
+    return model, own_instances_as_gt(model, ds, 2, 256, 16)
+
+
+def test_datasets_phase_helpers_on_the_card(dev, small_served, tmp_path):
+    """``write_coco_split`` and ``write_voc_split`` read back through the
+    port's COCO and VOC datasets as written; ``predictions_of`` launches K1
+    and K2 twice a batch, and the dataset-level evaluators score its
+    predictions against the model's own instances: finite, above 0."""
+    import numpy as np
+
+    from chip_smoke import VOC_NAMES, predictions_of, write_coco_split, write_voc_split
+    from mmt_psm_tpu_torch.data.coco import COCODataset
+    from mmt_psm_tpu_torch.data.voc import PascalVOCDataset
+    from mmt_psm_tpu_torch.evaluation import evaluate
+
+    model, items = small_served
+    write_coco_split(items, str(tmp_path / "coco"))
+    write_voc_split(items, str(tmp_path / "voc"))
+    coco = COCODataset(str(tmp_path / "coco" / "annotations.json"), str(tmp_path / "coco" / "images"))
+    voc = PascalVOCDataset(str(tmp_path / "voc"), "test")
+    assert len(coco) == len(voc) == len(items) and coco.json_category_id_to_contiguous_id == {7: 1, 9: 2}
+    for i, it in enumerate(items):
+        s = coco[i]
+        np.testing.assert_array_equal(s["image"], it["image"])
+        np.testing.assert_array_equal(s["masks"], it["masks"])
+        np.testing.assert_array_equal(s["boxes"], it["boxes"])
+        np.testing.assert_array_equal(s["labels"], it["labels"])
+        g = voc.get_groundtruth(i)
+        np.testing.assert_array_equal(g["boxes"], it["boxes"])
+        assert [voc.CLASSES[c] for c in g["labels"]] == [VOC_NAMES[c] for c in it["labels"].tolist()]
+    before = (N.suppress_cuda.launches, P.multilevel_roi_align_cuda.launches)
+    preds = predictions_of(model, coco, 2, 256)
+    n_batches = -(-len(coco) // 2)
+    assert (N.suppress_cuda.launches, P.multilevel_roi_align_cuda.launches) == \
+        (before[0] + 2 * n_batches, before[1] + 2 * n_batches)
+    for iou_type in ("segm", "bbox"):
+        r = evaluate(coco, preds, iou_type=iou_type)
+        assert 0 < r["AP"] <= 1 and math.isfinite(r["AP50"])
+    assert 0 < evaluate(voc, preds)["map"] <= 1
+
+
+def test_overlays_and_tta_on_the_card(dev, small_served, tmp_path):
+    """``run_inference`` with overlays and .mat export on the card writes two
+    overlays of the windows' size and a label map an image; a TTA batch's
+    views go through the model with K1 and K2 twice a view."""
+    import numpy as np
+    import scipy.io as sio
+    from PIL import Image
+
+    from mmt_psm_tpu_torch.data.loader import make_test_loader, make_tta_loader
+    from mmt_psm_tpu_torch.engine import inference as I
+
+    model, items = small_served
+    kw = dict(max_gt=16, min_size=256, max_size=256, raw_u8=True)
+    _, timing = I.run_inference(model, make_test_loader(items, 2, 256, **kw), eval_workers=0, visual_num=2,
+                                visual_dir=str(tmp_path / "vis"), mat_dir=str(tmp_path / "mat"))
+    assert timing["images"] == len(items)
+    assert sorted(os.listdir(tmp_path / "vis")) == ["vis_0000.png", "vis_0001.png"]
+    assert len(os.listdir(tmp_path / "mat")) == len(items)
+    assert np.asarray(Image.open(tmp_path / "vis" / "vis_0000.png")).shape == (256, 256, 3)
+    assert sio.loadmat(str(tmp_path / "mat" / "img_0000.mat"))["predmap"].max() > 0
+    batch = next(make_tta_loader(items, 2, 256, tta_k=2, max_gt=16, min_size=256, max_size=256))
+    sizes = torch.from_numpy(batch["image_size"]).to(dev)
+    before = (N.suppress_cuda.launches, P.multilevel_roi_align_cuda.launches)
+    dets = [model(torch.from_numpy(batch["tta_views"][:, k]).to(dev), sizes) for k in range(2)]
+    assert (N.suppress_cuda.launches, P.multilevel_roi_align_cuda.launches) == (before[0] + 4, before[1] + 4)
+    assert all(torch.isfinite(d.masks).all() and bool(d.valid.any()) for d in dets)

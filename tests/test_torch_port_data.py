@@ -147,9 +147,26 @@ def test_catalog_synthetic_and_disk_identical(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("names", ["cell_coco_val", "coco_foo", ("synthetic_val", "synthetic_train")])
-def test_catalog_entries_not_ported_raise(names):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        cat.build_datasets(names)
+def test_catalog_entries_not_ported_raise(names, tmp_path, monkeypatch):
+    """Since ROADMAP item 20 every entry resolves as the JAX catalog's does
+    (tests/test_torch_port_datasets.py holds the arrays): a COCO entry whose
+    files are missing raises as JAX's does, an unknown ``coco_*`` name
+    without its directory is unknown, and several names concatenate."""
+    monkeypatch.setattr(cat.DatasetCatalog, "DATA_DIR", str(tmp_path))
+    monkeypatch.setattr(jcat.DatasetCatalog, "DATA_DIR", str(tmp_path))
+    if names == "cell_coco_val":
+        for c in (cat, jcat):
+            with pytest.raises(FileNotFoundError):
+                c.build_datasets(names)
+    elif names == "coco_foo":
+        for c in (cat, jcat):
+            with pytest.raises(KeyError, match="coco_foo"):
+                c.build_datasets(names)
+    else:
+        ours, theirs = cat.build_datasets(names), jcat.build_datasets(names)
+        assert type(ours).__name__ == type(theirs).__name__ == "ConcatDataset"
+        assert ours.cumulative_sizes == theirs.cumulative_sizes
+        assert_same(ours[len(ours) - 1], theirs[len(theirs) - 1], "last item")
     with pytest.raises(KeyError):
         cat.DatasetCatalog.get("no_such_dataset")
 

@@ -185,11 +185,16 @@ def test_device_stage_refuses_float_canvases(pair, datasets):
                           prefetch_depth=0)
 
 
-def test_unported_options_raise(pair):
+def test_unported_options_raise(pair, tmp_path):
+    """The sharded evaluation (``mesh``) waits for ROADMAP item 19; overlays
+    and .mat export came with item 20 (tests/test_torch_port_datasets_slice.py
+    holds their files to JAX's)."""
     _, _, tm = pair
-    for kw in (dict(mesh=object()), dict(visual_num=1, visual_dir="v"), dict(mat_dir="m")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item (19|20)"):
-            inf.run_inference(tm, [], **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
+        inf.run_inference(tm, [], mesh=object())
+    for kw in (dict(visual_num=1, visual_dir=str(tmp_path / "v")), dict(mat_dir=str(tmp_path / "m"))):
+        _, timing = inf.run_inference(tm, [], **kw)
+        assert timing["images"] == 0
 
 
 def test_checkpointer_round_trip(tmp_path, pair):
@@ -297,5 +302,10 @@ def test_cell_demo_matches_jax(pair):
         assert len(g) == len(w)
         np.testing.assert_array_equal(g.areas > 0, w.areas > 0)
         assert np.abs(g.areas - w.areas).max() <= 0.02 * w.areas.max() + 2
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        CellDemo(tm, canvas=128).run_on_image(img)
+    # the overlay of the prediction (JAX engine/predictor.py:68), on the port's own detections
+    demo = CellDemo(tm, canvas=128, min_size=128, confidence_threshold=0.0)
+    from mmt_psm_tpu_torch.utils.visual import overlay_instances
+
+    overlay = demo.run_on_image(img)
+    assert overlay.dtype == np.uint8 and overlay.shape == img.shape and (overlay != img).any()
+    np.testing.assert_array_equal(overlay, overlay_instances(img, demo.compute_prediction(img)))

@@ -49,19 +49,20 @@ def flatten(tree, prefix=()):
     return out
 
 
-def configs(**extra):
+def configs(dtype: str = "float32", **extra):
     """(JAX ModelConfig, port ModelConfig) of the flagship YAML, cut to SMALL
-    (``extra`` fields, e.g. TRAIN_SMALL, added or put in its place)."""
+    (``extra`` fields, e.g. TRAIN_SMALL, added or put in its place), both
+    computing in ``dtype`` (the mask relation module too)."""
     jcfg = jax_get_cfg()
     jcfg.merge_from_file(FLAGSHIP)
     jm = JaxModelConfig.from_cfg(jcfg, train=False)
-    jm = dataclasses.replace(jm, **{**SMALL, **extra},
-                             relation_mask=dataclasses.replace(jm.relation_mask, compute_dtype="float32"))
+    jm = dataclasses.replace(jm, **{**SMALL, "compute_dtype": dtype, **extra},
+                             relation_mask=dataclasses.replace(jm.relation_mask, compute_dtype=dtype))
     tcfg = get_cfg()
     tcfg.merge_from_file(FLAGSHIP)
     tm = ModelConfig.from_cfg(tcfg)
-    tm = dataclasses.replace(tm, **{**SMALL, **extra},
-                             relation_mask=dataclasses.replace(tm.relation_mask, compute_dtype="float32"))
+    tm = dataclasses.replace(tm, **{**SMALL, "compute_dtype": dtype, **extra},
+                             relation_mask=dataclasses.replace(tm.relation_mask, compute_dtype=dtype))
     return jm, tm
 
 
@@ -72,9 +73,10 @@ def inputs(seed: int = 0, batch: int = 2, size: int = 128):
     return images, sizes
 
 
-def build_pair(seed: int = 0, **extra):
-    """-> (jax model, jax params, port model, flat params) sharing one set of weights."""
-    jm, tm = configs(**extra)
+def build_pair(seed: int = 0, dtype: str = "float32", **extra):
+    """-> (jax model, jax params, port model, flat params) sharing one set of
+    weights, both computing in ``dtype``."""
+    jm, tm = configs(dtype, **extra)
     jmodel = JaxMaskRCNN(config=jm)
     images, sizes = inputs()
     params = jax.jit(lambda: jmodel.init({"params": jax.random.PRNGKey(seed)}, jnp.asarray(images),
