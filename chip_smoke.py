@@ -125,7 +125,33 @@ line is printed):
      ``synthetic_train`` (finite losses, its images/s); K1 and K2 twice a
      batch or view, K1 once and K2 and K3 twice a step; every recorded call
      held against its plain version, one of each shape timed;
- 16. a ``{"kernels": [...]}`` line with each kernel's time over its calls
+ 16. the data-parallel path (``data parallel``), after ``datasets bf16``: two
+     ranks spawned on the card over gloo (NCCL refuses two ranks on one
+     device; a ``file://`` rendezvous, a 300 s group timeout, a 900 s
+     deadline, every rank killed when one fails, which fails the phase), at
+     the flagship's width (1024 canvas, global batch 4, 2 a rank, seed-0
+     weights): in f32 (TF32 and cuDNN off), one supervised step at START_MT
+     and one MT step at the ramp's plateau, each held against the same step
+     of one process on the global batch, which a rank computes first with
+     the world size read as 1: losses within LOSS_RTOL relative, the updated
+     student and EMA teacher within LOSS_RTOL of each tensor's norm + 1e-6,
+     the ranks' tensors bit-identical; in bf16, one recorded step of each
+     kind (every kernel call held against its plain version, rank 0's also
+     timed while rank 1 waits, K1/K2/K3 launching 1/2/2 a supervised step
+     and 4/6/3 an MT step, the single card's counts), then DP_STEPS timed
+     steps of each with their launches
+     counted from 0, each rank's labeled images/s and the gradient
+     all-reduce's ms for the ~46M-element bucket; ``run_inference`` on the
+     ranks over the serving phase's 8 windows (the model's own instances as
+     gt), each serving its ShardSampler share at batch 2, every rank's stats
+     (AJI, F1, DSC, mAP) within EVAL_STATS_ATOL of one process's at batch 2;
+     then on rank 0 a one-rank NCCL group with every helper of
+     ``parallel/comm.py`` issuing its collective: a warm supervised step
+     held to the same step without collectives (LOSS_RTOL), one with
+     synchronising calls made errors (its all-reduces counted), the loss
+     sum, ``all_gather_object`` and the barrier. NCCL at more than one rank
+     does not run on one card;
+ 17. a ``{"kernels": [...]}`` line with each kernel's time over its calls
      of one flagship forward (K1: the RPN's and relation-NMS's; K2: the box
      head's and the mask head's) or of one train step (K3: the box head's
      and the mask head's), its plain version's time and its bound on this
@@ -134,13 +160,15 @@ line is printed):
      ``launches_datasets``, the K1 and K2 numbers of the train step under ``*_train`` keys,
      every kernel's over the MT step's recorded calls under ``*_mt``
      keys (plain times too), its launches in the train CLI's loop under
-     ``launches_cli`` and, under ``variants``, each variant's launches,
+     ``launches_cli``, rank 0's launches over the data-parallel path's timed
+     supervised and MT steps under ``launches_dp`` and, under ``variants``,
+     each variant's launches,
      summed times, bound and error over its recorded calls, after lines
      with each call's own times. A
      kernel's time is the device time of the kernels its wrapper launches
      (torch.profiler), without the host's time to launch them; a plain
      version's is CUDA events around it;
- 17. the throughput in patches/s, evaluated patches/s (the serving path
+ 18. the throughput in patches/s, evaluated patches/s (the serving path
      scored serially, with the host seconds of each of its stages; the
      pool's run and its start on a line of its own; the datasets path's COCO
      sweep), images/s (supervised, MT, the train CLI's loop and its 2
@@ -152,6 +180,7 @@ The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import json
 import math
 import re
@@ -1966,6 +1995,437 @@ def datasets_path(dev, stats, eval_ds):
     return coco_timing, DATASETS_TRAIN_ITERS * BATCH / train_s, timed
 
 
+# --------------------------------------------------------- data parallel
+# two ranks on cuda:0 over gloo (NCCL refuses two ranks on one device), the
+# flagship at full width: a global batch of BATCH, BATCH // DP_WORLD a rank
+DP_WORLD, DP_STEPS, DP_EVAL_BATCH = 2, 3, 2
+DP_GROUP_TIMEOUT_S, DP_JOIN_TIMEOUT_S = 300, 900
+# per rank and step, the single-card counts: K1 for the RPN, K2 and K3 for the
+# box and mask heads (supervised); MT_LAUNCHES (mean teacher)
+DP_LAUNCHES = {"sup": STEP_LAUNCHES, "mt": MT_LAUNCHES}
+
+
+def _world_one():
+    """The helpers of ``parallel/comm.py`` read the world size at each call:
+    with it read as 1, a rank computes what one process computes."""
+    from mmt_psm_tpu_torch.parallel import comm
+
+    return mock.patch.multiple(comm, get_world_size=lambda: 1, get_rank=lambda: 0)
+
+
+def _packed(items):
+    import numpy as np
+
+    return [dict(it, masks=np.packbits(it["masks"], axis=-1), width=it["masks"].shape[-1]) for it in items]
+
+
+def _unpacked(items):
+    import numpy as np
+
+    return [{**{k: v for k, v in it.items() if k != "width"},
+             "masks": np.unpackbits(it["masks"], axis=-1, count=it["width"])} for it in items]
+
+
+def _dp_losses(losses):
+    """The global batch's losses, as the loop sums them (``comm.global_losses``)."""
+    from mmt_psm_tpu_torch.engine.trainer import REPLICATED
+    from mmt_psm_tpu_torch.parallel import comm
+
+    return {k: float(v) for k, v in comm.global_losses(losses, REPLICATED).items()}
+
+
+def _ranks_identical(state):
+    flat = torch.cat([v.reshape(-1).float() for v in state.values()])
+    ref = flat.clone()
+    torch.distributed.broadcast(ref, src=0)
+    same = torch.tensor([int(torch.equal(flat, ref))], device=flat.device)
+    torch.distributed.all_reduce(same, op=torch.distributed.ReduceOp.MIN)
+    return bool(same.item())
+
+
+def _dp_f32(dev, rank, mesh, opts, batch=BATCH):
+    """One supervised step at START_MT and one MT step at the ramp's plateau,
+    f32, TF32 off, on the global batch sharded over the ranks, each held
+    against the same step of one process on the global batch (rank 0 checks
+    the supervised step, rank 1 the MT step, both references computed side
+    by side first): losses to LOSS_RTOL relative, the updated student and
+    teacher to LOSS_RTOL of each tensor's norm (``norm_diffs``), the ranks'
+    tensors bit-identical. cuDNN is off here: it picks its convolution by
+    the batch size, and the float32 rounding of another algorithm moves the
+    teacher's spreads enough to swap two of PSM's hard negatives at the
+    n_pos // 2 cut (2e-4 relative on ``mt_classifier`` in a CPU rehearsal
+    with oneDNN, whose blocking moves the same way); PyTorch's own CUDA
+    convolution computes each image alone, so the two runs differ by the
+    order of the sums the data parallelism changes."""
+    from mmt_psm_tpu_torch.data.synthetic import (batch_to_torch, generate_batch, generate_unlabeled_batch,
+                                                  unlabeled_to_torch)
+    from mmt_psm_tpu_torch.parallel.mesh import shard_batch
+    from mmt_psm_tpu_torch.train import build_mt_trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lab = generate_batch(20, batch, image_size=CANVAS, max_instances=64)
+    unl = generate_unlabeled_batch(21, batch, image_size=CANVAS, max_instances=64)
+
+    def run(kind, m):
+        trainer = build_mt_trainer(device=dev, seed=0, opts=[*opts, "TPU.COMPUTE_DTYPE", "float32"])
+        with torch.no_grad():  # the relation head's geometric gate off its pole (see GRAD_RTOL)
+            for model in (trainer.model, trainer.teacher):
+                model.relation_nms.relation_module.WG.bias.fill_(WG_BIAS)
+        mt = trainer.mt
+        trainer.iteration = mt.start_mt if kind == "sup" else mt.start_mt + mt.rampup_step
+        labeled = batch_to_torch(shard_batch(lab, m), dev)
+        losses = (trainer.step(labeled) if kind == "sup"
+                  else trainer.step(labeled, unlabeled_to_torch(shard_batch(unl, m), dev)))
+        out = {"losses": _dp_losses(losses), "student": {k: v.detach().clone() for k, v in
+                                                         trainer.model.state_dict().items()},
+               "teacher": {k: v.detach().clone() for k, v in trainer.teacher.state_dict().items()}}
+        del trainer
+        torch.cuda.empty_cache()
+        return out
+
+    from mmt_psm_tpu_torch.parallel.mesh import Mesh
+
+    kinds = ("sup", "mt")
+    if rank < len(kinds):
+        with torch.backends.cudnn.flags(enabled=False, allow_tf32=False), _world_one():
+            ref = run(kinds[rank], Mesh(1, 0, dev, None))
+    lines = {}
+    for i, kind in enumerate(kinds):
+        with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+            got = run(kind, mesh)
+        identical = _ranks_identical(got["student"]) and _ranks_identical(got["teacher"])
+        if not identical:
+            raise AssertionError(f"data parallel f32 {kind} step: the ranks' tensors differ")
+        if i != rank:
+            continue
+        bad = {k: (v, ref["losses"][k]) for k, v in got["losses"].items()
+               if not abs(v - ref["losses"][k]) <= LOSS_RTOL * abs(ref["losses"][k])}
+        if bad or set(got["losses"]) != set(ref["losses"]):
+            raise AssertionError(f"data parallel f32 {kind} step: losses differ from one process beyond "
+                                 f"{LOSS_RTOL} relative: {bad}")
+        rel = {k: abs(v - ref["losses"][k]) / max(abs(ref["losses"][k]), 1e-30) for k, v in got["losses"].items()}
+        try:
+            tensors = (norm_diffs(got["student"], ref["student"], LOSS_RTOL, "student tensors") + "; "
+                       + norm_diffs(got["teacher"], ref["teacher"], LOSS_RTOL, "teacher tensors"))
+        except AssertionError as e:
+            raise AssertionError(f"data parallel f32 {kind} step over {mesh.world} ranks: {e}; the losses' "
+                                 f"relative differences {rel}") from e
+        lines[kind] = (f"{kind}: losses within {LOSS_RTOL} relative of one process (max {max(rel.values()):.3g}); "
+                       + tensors + "; the ranks bit-identical")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return lines
+
+
+def _dp_bf16(dev, mesh, opts, batch=BATCH):
+    """DP_STEPS timed supervised and MT steps (bf16) at a global batch of
+    ``batch`` after one warm step of each whose kernel calls are recorded and
+    held against their plain versions (on rank 0 also timed, ``time_calls``,
+    while rank 1 waits in a barrier); the launches of the timed steps, the
+    labeled images/s and the gradient all-reduce's ms."""
+    from mmt_psm_tpu_torch.data.synthetic import (batch_to_torch, generate_batch, generate_unlabeled_batch,
+                                                  unlabeled_to_torch)
+    from mmt_psm_tpu_torch.parallel import comm
+    from mmt_psm_tpu_torch.parallel.mesh import shard_batch
+    from mmt_psm_tpu_torch.train import build_mt_trainer
+
+    trainer = build_mt_trainer(device=dev, seed=0, opts=opts)
+    mt = trainer.mt
+    labeled = [batch_to_torch(shard_batch(generate_batch(s, batch, image_size=CANVAS, max_instances=64), mesh), dev)
+               for s in range(2)]
+    unlabeled = [unlabeled_to_torch(shard_batch(generate_unlabeled_batch(10 + s, batch, image_size=CANVAS,
+                                                                         max_instances=64), mesh), dev)
+                 for s in range(2)]
+    out = {"images_per_rank": int(labeled[0]["image"].shape[0])}
+    for kind, start in (("sup", 0), ("mt", mt.start_mt + 1)):
+        trainer.iteration = start
+        args = lambda i: (labeled[i % 2],) + ((unlabeled[i % 2],) if kind == "mt" else ())  # noqa: E731
+        calls = []
+        with recording(calls):
+            trainer.step(*args(0))
+        torch.cuda.synchronize()
+        found = _count(calls)
+        if found != DP_LAUNCHES[kind]:
+            raise AssertionError(f"kernel calls in one data-parallel {kind} step: {found}, "
+                                 f"expected {DP_LAUNCHES[kind]}")
+        errs, timed = {}, None
+        if mesh.rank == 0:
+            comm.synchronize()  # the other rank's checks are done: the card is this rank's to time
+            timed, per_call = time_calls(calls)
+            errs = {k: v[3] for k, v in timed.items()}
+            timed = {k: {"ms": v[0], "plain_ms": v[1], **v[2], "calls": [c[1] for c in per_call if c[0] == k]}
+                     for k, v in timed.items()}
+            comm.synchronize()
+        else:
+            for key, a in calls:
+                errs[key] = max(errs.get(key, 0.0), held_against_plain(key, a)[1])
+            comm.synchronize()
+            comm.synchronize()
+        del calls
+        counters = _reset_counters()
+        t = time.perf_counter()
+        outs = [trainer.step(*args(i + 1)) for i in range(DP_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {k: fn.launches for k, fn in counters.items()}
+        expected = {k: v * DP_STEPS for k, v in DP_LAUNCHES[kind].items()}
+        if launches != expected:
+            raise AssertionError(f"kernel launches in {DP_STEPS} data-parallel {kind} steps: {launches}, "
+                                 f"expected {expected}")
+        losses = _dp_losses(outs[-1])
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"data-parallel {kind} losses {losses}")
+        out[kind] = {"seconds": wall, "launches": launches, "max_abs_err": errs, "losses": losses, "timed": timed}
+    # the gradient bucket of the last step, summed again: its all-reduce alone
+    tensors = trainer.clip_tensors
+    n = sum(t.numel() for t in tensors)
+    for _ in range(2):
+        comm.all_reduce_grads_(tensors)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(DP_STEPS):
+        comm.all_reduce_grads_(tensors)
+    torch.cuda.synchronize()
+    out["allreduce"] = {"ms": (time.perf_counter() - t) * 1e3 / DP_STEPS, "elements": n}
+    return out
+
+
+def _dp_eval(dev, rank, world, items_path, opts):
+    """``run_inference`` over this rank's ShardSampler share of the eval
+    windows at TEST.IMS_PER_BATCH DP_EVAL_BATCH: the whole split's stats."""
+    import pickle
+
+    from mmt_psm_tpu_torch import build_model
+    from mmt_psm_tpu_torch.data.loader import make_test_loader
+    from mmt_psm_tpu_torch.data.samplers import ShardSampler
+    from mmt_psm_tpu_torch.engine.inference import run_inference
+
+    with open(items_path, "rb") as f:
+        items = _unpacked(pickle.load(f))
+    model = build_model(device=dev, seed=0, opts=opts)
+    shard = ShardSampler(len(items), world, rank, shuffle=False)
+    loader = make_test_loader(items, DP_EVAL_BATCH, CANVAS, max_gt=EVAL_MAX_GT, min_size=CANVAS, max_size=CANVAS,
+                              raw_u8=True, indices=shard)
+    stats, timing = run_inference(model, loader, eval_workers=0)
+    return {"stats": stats, "images": timing["images"], "seconds": timing["seconds"]}
+
+
+def _dp_nccl(dev, store, opts):
+    """A one-rank NCCL group on the card, through the collectives' own path:
+    ``comm.distributed`` read as true, so every helper issues its NCCL
+    collective in the group of one. Two supervised steps, the second with
+    synchronising calls made errors: the step's sums, row gathers and k-th
+    (all-reduces) and its gradient bucket's all-reduce. Then the loop's
+    loss sum, the eval merge's ``all_gather_object`` and the checkpoint
+    barrier. The first step's losses are held against the same step of a
+    trainer from the same seed without collectives (LOSS_RTOL: the batch
+    mean's sum over a count rounds apart from ``mean``). Returns the second
+    step's losses and the collectives counted."""
+    from mmt_psm_tpu_torch.data.synthetic import batch_to_torch, generate_batch
+    from mmt_psm_tpu_torch.engine.trainer import REPLICATED
+    from mmt_psm_tpu_torch.parallel import comm
+    from mmt_psm_tpu_torch.train import build_trainer
+
+    batches = [batch_to_torch(generate_batch(s, BATCH, image_size=CANVAS, max_instances=64), dev) for s in (0, 1)]
+    plain = build_trainer(device=dev, seed=0, opts=opts)
+    want = {k: float(v) for k, v in plain.step(batches[0]).items()}
+    del plain
+    torch.cuda.empty_cache()
+    comm.init_distributed("nccl", dev, rank=0, world_size=1, init_method=f"file://{store}",
+                          timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT_S))
+    dist = torch.distributed
+    counts = {"all_reduce": 0, "all_gather_object": 0, "barrier": 0}
+
+    def counted(name):
+        fn = getattr(dist, name)
+
+        def call(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"not a one-rank NCCL group: {dist.get_backend()}, {dist.get_world_size()}")
+        with mock.patch.object(comm, "distributed", lambda: True), \
+                mock.patch.multiple(dist, **{k: counted(k) for k in counts}):
+            trainer = build_trainer(device=dev, seed=0, opts=opts)
+            first = {k: float(v) for k, v in trainer.step(batches[0]).items()}
+            bad = {k: (v, want[k]) for k, v in first.items() if not abs(v - want[k]) <= LOSS_RTOL * abs(want[k])}
+            if bad or set(first) != set(want):
+                raise AssertionError(f"NCCL world-1 step: losses beyond {LOSS_RTOL} of the step without "
+                                     f"collectives: {bad}")
+            torch.cuda.synchronize()
+            before = dict(counts)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                losses = trainer.step(batches[1])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            step = counts["all_reduce"] - before["all_reduce"]
+            if step < 2 or counts["all_gather_object"] or counts["barrier"]:
+                raise AssertionError(f"NCCL world-1 step: collectives {counts}, {step} all-reduces in the step")
+            losses = {k: float(v) for k, v in comm.global_losses(losses, REPLICATED).items()}
+            if comm.all_gather({"rank": 0}) != [{"rank": 0}]:
+                raise AssertionError("NCCL world-1 all_gather")
+            comm.synchronize()
+            torch.cuda.synchronize()
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"NCCL world-1 losses {losses}")
+        worst = max(abs(v - want[k]) / max(abs(want[k]), 1e-30) for k, v in first.items())
+        return {"losses": losses, "step_all_reduces": step, "collectives": counts, "first_step_rel": worst}
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_rank(rank, world, backend, device, tmp, items_path, opts, batch):
+    """One rank of a data-parallel world on ``device`` (LOCAL_RANK its
+    index), the configs the flagship's plus ``opts``, a global batch of
+    ``batch``; its results in ``tmp``. Over gloo, rank 0 then runs the
+    one-rank NCCL group."""
+    import os
+    import pickle
+    import traceback
+
+    from mmt_psm_tpu_torch.ops import kernels
+    from mmt_psm_tpu_torch.parallel import comm
+    from mmt_psm_tpu_torch.parallel.mesh import current_mesh
+
+    try:
+        kernels.build_all()  # built by the parent: loads them
+        os.environ["LOCAL_RANK"] = str(torch.device(device).index or 0)
+        dev = comm.init_distributed(backend, device, rank=rank, world_size=world, init_method=f"file://{tmp}/store",
+                                    timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT_S))
+        mesh = current_mesh(dev)
+        out = {}
+        t = time.perf_counter()
+        out["f32"] = _dp_f32(dev, rank, mesh, opts, batch)
+        out["f32_seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["bf16"] = _dp_bf16(dev, mesh, opts, batch)
+        out["bf16_seconds"] = time.perf_counter() - t
+        out["eval"] = _dp_eval(dev, rank, world, items_path, opts)
+        comm.synchronize()
+        torch.distributed.destroy_process_group()
+        if rank == 0 and backend == "gloo":
+            out["nccl"] = _dp_nccl(dev, f"{tmp}/store_nccl", opts)
+        with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(f"{tmp}/rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def data_parallel_path(dev, stats, opts=(), backend="gloo", devices=None, batch=BATCH):
+    """The data-parallel phase: a rank spawned on each of ``devices`` (by
+    default DP_WORLD on ``dev``) joining a ``backend`` group, each running
+    ``dp_rank`` on a global batch of ``batch``; a rank that fails or hangs
+    fails the phase (every rank is then killed). Against one process on
+    ``dev`` here: the sharded eval's stats (EVAL_STATS_ATOL). ``opts``:
+    overrides of the flagship config (a rehearsal at a small size)."""
+    import multiprocessing as mp
+    import os
+    import pickle
+    import tempfile
+
+    from mmt_psm_tpu_torch import build_model
+    from mmt_psm_tpu_torch.data.loader import make_test_loader
+    from mmt_psm_tpu_torch.data.pap import synthetic_slide_dataset
+    from mmt_psm_tpu_torch.engine.inference import run_inference
+
+    model = build_model(device=dev, seed=0, opts=opts)
+    items = own_instances_as_gt(model, synthetic_slide_dataset(**EVAL_SLIDES), BATCH, CANVAS, EVAL_MAX_GT)
+    want, _ = run_inference(model, make_test_loader(items, DP_EVAL_BATCH, CANVAS, max_gt=EVAL_MAX_GT, min_size=CANVAS,
+                                                    max_size=CANVAS, raw_u8=True), eval_workers=0)
+    del model
+    torch.cuda.empty_cache()
+    devices = [str(dev)] * DP_WORLD if devices is None else list(devices)
+    world = len(devices)
+    with tempfile.TemporaryDirectory() as tmp:
+        items_path = os.path.join(tmp, "items.pkl")
+        with open(items_path, "wb") as f:
+            pickle.dump(_packed(items), f)
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=dp_rank, args=(r, world, backend, d, tmp, items_path, list(opts), batch))
+                 for r, d in enumerate(devices)]
+        t = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + DP_JOIN_TIMEOUT_S
+            while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.5)
+            failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+            if failed:
+                errs = "".join(open(os.path.join(tmp, f"rank{r}.err")).read() for r in failed
+                               if os.path.exists(os.path.join(tmp, f"rank{r}.err")))
+                raise AssertionError(f"data parallel: rank(s) {failed} failed or did not finish in "
+                                     f"{DP_JOIN_TIMEOUT_S} s (exit codes {[p.exitcode for p in procs]}):\n{errs}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+        wall = time.perf_counter() - t
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    for r, out in enumerate(ranks):
+        for kind, line in out["f32"].items():
+            print(f"data parallel f32 rank {r} {line}", flush=True)
+    for r, out in enumerate(ranks):
+        b = out["bf16"]
+        print(f"data parallel bf16 rank {r}: {b['images_per_rank']} of {batch} images a step; "
+              + "; ".join(f"{kind}: {DP_STEPS} steps in {b[kind]['seconds']:.3f} s, "
+                          f"{DP_STEPS * b['images_per_rank'] / b[kind]['seconds']:.3f} labeled images/s on this rank "
+                          f"({DP_STEPS * batch / b[kind]['seconds']:.3f} for the global batch), launches "
+                          f"{json.dumps(b[kind]['launches'])} (expected {json.dumps(DP_LAUNCHES[kind])} a step), "
+                          f"recorded calls' max abs err against the plain versions "
+                          f"{json.dumps(b[kind]['max_abs_err'])}, "
+                          f"global losses {json.dumps(b[kind]['losses'])}" for kind in ("sup", "mt"))
+              + f"; gradient all-reduce over {backend} of {b['allreduce']['elements']} elements: "
+                f"{b['allreduce']['ms']:.3f} ms", flush=True)
+    for kind in ("sup", "mt"):
+        print(f"data parallel bf16 rank 0 {kind} step's kernel calls at {ranks[0]['bf16']['images_per_rank']} "
+              f"images, device ms summed over the step's calls: "
+              + "; ".join(f"{k} ({', '.join(t['calls'])}) {t['ms']:.4f}, plain {t['plain_ms']:.3f}, bound "
+                          f"{t['bound_ms']:.5f} ({t['bound_by']})"
+                          for k, t in ranks[0]["bf16"][kind]["timed"].items()), flush=True)
+    if any(o["bf16"]["sup"]["losses"] != ranks[0]["bf16"]["sup"]["losses"] for o in ranks):
+        raise AssertionError("data parallel: the ranks log other global losses")
+    for r, out in enumerate(ranks):
+        got = out["eval"]["stats"]
+        diff = {f"{m}/{c}": (got[m][c], want[m][c]) for m in ("AJI", "F1", "DSC", "mAP") for c in want[m]
+                if not abs(got[m][c] - want[m][c]) <= EVAL_STATS_ATOL}
+        if diff or sum(o["eval"]["images"] for o in ranks) != len(items):
+            raise AssertionError(f"data parallel eval rank {r}: {out['eval']['images']} images, stats beyond "
+                                 f"{EVAL_STATS_ATOL} of one process: {diff}")
+    scored({"AJI": want["AJI"], "mAP": want["mAP"]}, "data parallel eval")
+    print(f"data parallel eval: {len(items)} windows over {world} ranks at batch {DP_EVAL_BATCH}, "
+          f"{[o['eval']['images'] for o in ranks]} images a rank in {[round(o['eval']['seconds'], 3) for o in ranks]} "
+          f"s; AJI/F1/DSC/mAP within {EVAL_STATS_ATOL} of one process at batch {DP_EVAL_BATCH} "
+          f"({json.dumps({m: want[m] for m in ('AJI', 'F1', 'DSC', 'mAP')})})", flush=True)
+    if "nccl" in ranks[0]:
+        nc = ranks[0]["nccl"]
+        print(f"data parallel NCCL world 1, every helper's collective issued: a supervised step with "
+              f"synchronising calls made errors, {nc['step_all_reduces']} all-reduces in it, losses "
+              f"{json.dumps(nc['losses'])}; the warm step's losses within {nc['first_step_rel']:.3g} relative of "
+              f"the step without collectives; collectives in all {json.dumps(nc['collectives'])}", flush=True)
+    shared = len(set(devices)) < world
+    print(f"data parallel: {world} ranks on {sorted(set(devices))} over {backend} in {wall:.3f} s (f32 checks "
+          f"{[round(o['f32_seconds'], 3) for o in ranks]} s, bf16 runs {[round(o['bf16_seconds'], 3) for o in ranks]} "
+          f"s)" + ("; ranks sharing one card say nothing of scaling over cards" if shared else ""), flush=True)
+    for k in ("nms", "roi_align", "roi_align_backward"):
+        # rank 0's launches over its timed supervised and MT steps
+        stats[k]["launches_dp"] = sum(ranks[0]["bf16"][kind]["launches"][k] for kind in ("sup", "mt"))
+    return ranks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1992,6 +2452,7 @@ def main() -> int:
     variant_rates = phase("variants bf16", lambda: variants_path(dev, stats, eval_ds))
     phase("variants f32 vs plain", lambda: variants_f32_vs_plain(dev))
     coco_timing, datasets_train_rate, _ = phase("datasets bf16", lambda: datasets_path(dev, stats, eval_ds))
+    dp_ranks = phase("data parallel", lambda: data_parallel_path(dev, stats))
     print(f"throughput: {patches_per_s:.3f} patches/s at {CANVAS}px, batch {BATCH}, bf16 on {card}", flush=True)
     print(f"eval throughput: {eval_timing['images_per_sec']} evaluated patches/s at {CANVAS}px, batch {BATCH}, bf16, "
           f"host paste and Papeval included, scored serially; stage_seconds "
@@ -2013,6 +2474,12 @@ def main() -> int:
           f"batch {BATCH}, bf16, scored serially; stage_seconds {json.dumps(coco_timing['stage_seconds'])} of "
           f"{coco_timing['seconds']} s; train CLI {datasets_train_rate:.3f} images/s over {DATASETS_TRAIN_ITERS} "
           f"supervised iterations on {card}", flush=True)
+    dp = [o["bf16"] for o in dp_ranks]
+    rate = lambda kind: [round(DP_STEPS * b["images_per_rank"] / b[kind]["seconds"], 3) for b in dp]  # noqa: E731
+    print(f"data parallel throughput: {DP_WORLD} ranks sharing one card over gloo, {dp[0]['images_per_rank']} labeled "
+          f"images a rank and step: supervised {rate('sup')} labeled images/s a rank, MT {rate('mt')}; "
+          f"gradient all-reduce {[round(b['allreduce']['ms'], 3) for b in dp]} ms for {dp[0]['allreduce']['elements']} "
+          f"f32 elements, at {CANVAS}px, bf16 on {card}", flush=True)
     print(json.dumps({"kernels": [stats["nms"], stats["roi_align"], stats["roi_align_backward"]]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

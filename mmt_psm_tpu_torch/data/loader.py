@@ -167,20 +167,30 @@ def make_test_loader(
     min_size: int = 800,
     max_size: int = 1333,
     raw_u8: bool = False,
+    indices=None,
 ):
     """Single-pass eval iterator (pads the final partial batch by
     repeating the last sample; consumers filter via n_real).
+
+    indices: the dataset indices to serve, in order (a rank's
+    ``data.samplers.ShardSampler``); each batch then carries its rows'
+    indices as ``index`` (int64), which the sharded evaluation merges by.
+    A shard's padding repeats (its last ``len - num_real`` indices) are
+    served but left out of ``n_real``, so no image is scored twice.
+    Default: the whole dataset in order, without ``index``.
 
     raw_u8=True ships resized RGB uint8 canvases and leaves the BGR flip
     and the mean subtraction to the device (``engine/inference.py``'s
     device stage): a quarter of the f32 bytes to copy. Valid only with
     PIXEL_STD 1, as the device subtracts the mean only."""
+    order = list(range(len(dataset))) if indices is None else [int(i) for i in indices]
+    scored = getattr(indices, "num_real", len(order))
 
     def gen():
-        n = len(dataset)
+        n = len(order)
         for start in range(0, n, batch_size):
-            idxs = list(range(start, min(start + batch_size, n)))
-            n_real = len(idxs)
+            idxs = order[start:min(start + batch_size, n)]
+            n_real = min(len(idxs), max(scored - start, 0))
             while len(idxs) < batch_size:
                 idxs.append(idxs[-1])
             samples = []
@@ -194,6 +204,8 @@ def make_test_loader(
                 samples.append(pad_to_canvas(s, canvas, max_gt, mask_size, pad_masks=False))
             batch = _stack(samples)
             batch["n_real"] = n_real
+            if indices is not None:
+                batch["index"] = np.asarray(idxs, np.int64)
             yield batch
 
     return gen()

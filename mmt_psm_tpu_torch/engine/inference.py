@@ -15,6 +15,14 @@ worker processes (``engine/_eval_worker.py``). An image whose overlay or
 ``.mat`` label map is written (``utils/visual.py``, ``utils/mat_output.py``)
 is pasted and scored in this process.
 
+In a process group of W ranks (``parallel/comm.py``) the evaluation is
+sharded: each rank serves its ``data.samplers.ShardSampler`` share of the
+test windows (``make_test_loader(indices=...)``, whose batches carry each
+row's dataset index and leave the sampler's padding repeats unscored), the
+ranks' per-image Papeval rows are gathered and put back in dataset order,
+and every rank returns the stats of the whole split: those of one process
+that served every window.
+
 ``DeviceStage`` runs the forwards. On the card it copies each batch's
 canvases (raw RGB uint8 from ``make_test_loader(raw_u8=True)``) through
 one of two pinned staging buffers with
@@ -41,6 +49,7 @@ from ..data.transforms import PIXEL_MEAN_BGR
 from ..evaluation import _native
 from ..evaluation.pap_eval import PapEvaluator
 from ..models.box_head import set_nms_filter
+from ..parallel import comm
 from ..utils.mat_output import save_mat_output
 from ..utils.visual import overlay_instances
 from . import _eval_worker
@@ -183,7 +192,6 @@ def run_inference(
     batches,
     categories=(1, 2),
     max_dets: int = 200,
-    mesh=None,
     visual_num: int = 0,
     visual_dir: str | None = None,
     mat_dir: str | None = None,
@@ -209,17 +217,21 @@ def run_inference(
     workers finish in. -1: one per spare core, serial without spare cores.
     prefetch_depth: batches assembled ahead in a thread (``data.loader.
     prefetch``); 0 synchronous, -1 auto.
-    visual_num, visual_dir: the first ``visual_num`` images' overlays as
-    ``visual_dir/vis_<n:04d>.png`` (TEST.VISUAL_NUM, the reference's
-    pap_eval.py:49-77), drawn over the raw uint8 window.
+    visual_num, visual_dir: the overlays of the images ``n`` < ``visual_num``
+    as ``visual_dir/vis_<n:04d>.png`` (TEST.VISUAL_NUM, the reference's
+    pap_eval.py:49-77), drawn over the raw uint8 window; ``n`` is the
+    image's place in the split: its dataset index where batches carry
+    ``index``, so ranks that share one directory write each file once.
     mat_dir: every image's instance label map as
     ``mat_dir/img_<n:04d>.mat`` (TEST.GEN, the reference's ISBI export,
     tools/test_net.py:109-121).
-    ``mesh`` is not ported yet and raises.
+    In a process group of more than one rank every batch must carry
+    ``index`` (``make_test_loader(indices=ShardSampler(...))``) and the
+    stats are the whole split's, the same on every rank; "images" counts
+    this rank's. JAX's ``mesh`` argument has no counterpart: the loader's
+    indices say which windows a rank serves.
     """
-    if mesh is not None or (torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError("sharded evaluation and its gather across processes are not ported yet "
-                                  "(ROADMAP item 19)")
+    sharded = comm.get_world_size() > 1
     stage = DeviceStage(model)
     if eval_workers < 0:
         ncpu = usable_cpus()
@@ -229,8 +241,9 @@ def run_inference(
     pool, pings = _start_pool(eval_workers) if eval_workers > 0 else (None, [])
     # per image in order, a worker's Future or the rows scored here: the
     # accumulation order, and so the ties of the mergesort PR curves, do not
-    # depend on the workers
-    result_slots = []
+    # depend on the workers (nor, sharded, on the ranks: each image's rows
+    # go with its dataset index)
+    result_slots, image_index = [], []
     n_images = 0
     acc = {"loader": 0.0, "device": 0.0, "gt": 0.0, "score": 0.0}
     if prefetch_depth != 0:
@@ -259,6 +272,9 @@ def run_inference(
                 masks = masks16.astype(np.float32)
             # the test loader pads the last batch by repeating a sample
             n_real = int(batch.get("n_real", boxes.shape[0]))
+            if sharded and "index" not in batch:
+                raise ValueError("a sharded evaluation needs each row's dataset index: build the loader with "
+                                 "make_test_loader(indices=ShardSampler(...))")
             for i in range(n_real):
                 v_i = valid[i]
                 if head_ids is not None:
@@ -272,7 +288,8 @@ def run_inference(
                 t_s = time.perf_counter()
                 acc["gt"] += t_s - t_g
                 hw = tuple(np.asarray(batch["image_size"][i]).tolist())
-                visual = bool(visual_dir) and n_images < visual_num
+                name = int(batch["index"][i]) if "index" in batch else n_images
+                visual = bool(visual_dir) and name < visual_num
                 if pool is not None and not (visual or mat_dir):
                     result_slots.append(pool.submit(_eval_worker.eval_one, (
                         boxes[i], scores[i], labels[i], v_i, masks[i] if masks16 is None else masks16[i],
@@ -286,22 +303,23 @@ def run_inference(
                         os.makedirs(visual_dir, exist_ok=True)
                         Image.fromarray(overlay_instances(np.asarray(batch["image"][i][: hw[0], : hw[1]]),
                                                           {"masks": dt})).save(
-                            os.path.join(visual_dir, f"vis_{n_images:04d}.png"))
+                            os.path.join(visual_dir, f"vis_{name:04d}.png"))
                     if mat_dir:
-                        save_mat_output(dt, hw[0], hw[1], os.path.join(mat_dir, f"img_{n_images:04d}.mat"))
+                        save_mat_output(dt, hw[0], hw[1], os.path.join(mat_dir, f"img_{name:04d}.mat"))
                     before = len(evaluator.results)
                     evaluator.add_image(dt, gt)
-                    if pool is not None:
+                    if pool is not None or sharded:
                         result_slots.append(evaluator.results[before:])
                         del evaluator.results[before:]
+                if sharded:
+                    image_index.append(name)
                 acc["score"] += time.perf_counter() - t_s
                 n_images += 1
             batch, pending = next_batch, next_pending
+        t = time.perf_counter()
+        rows = [slot if isinstance(slot, list) else slot.result() for slot in result_slots]
+        acc["score"] += time.perf_counter() - t
         if pool is not None:
-            t = time.perf_counter()
-            for slot in result_slots:
-                evaluator.results.extend(slot if isinstance(slot, list) else slot.result())
-            acc["score"] += time.perf_counter() - t
             pool_start = max(p.result() for p in pings) - t0_wall
     finally:
         # stop the prefetch thread and the workers even if scoring raised
@@ -310,6 +328,13 @@ def run_inference(
             close()
         if pool is not None:
             pool.shutdown(cancel_futures=True)
+    if sharded:
+        # every rank's (dataset index, rows) of each image, in dataset order
+        # (the sampler's padding repeats are not scored: ``n_real``)
+        merged = {idx: r for part in comm.all_gather(list(zip(image_index, rows))) for idx, r in part}
+        rows = [merged[i] for i in sorted(merged)]
+    for r in rows:
+        evaluator.results.extend(r)
     seconds = time.perf_counter() - t0
     stats = evaluator.summarize()
     return stats, {

@@ -27,7 +27,18 @@ the step generator), over two batch iterators:
 * TPU.PROFILE_DIR: a ``torch.profiler`` trace of iterations
   [PROFILE_START, PROFILE_START + PROFILE_STEPS) written there.
 
-One device: TPU.MESH_SHAPE [-1] or [1]. Data parallelism is ROADMAP item 19.
+Data parallelism: in a process group of W ranks (``parallel/comm.py::
+init_distributed``) the mesh spans the world (``parallel/mesh.py::
+mesh_size_for``, which raises where TPU.MESH_SHAPE or the batch would leave
+a rank out). Every rank assembles the global batch of SOLVER.IMS_PER_BATCH
+images from the loaders' seeds and keeps its rows (``shard_batch``, in the
+prefetch thread), so the arrays are those of the JAX mesh; the step sums
+the gradients over the ranks (``train/supervised.py``). The losses of the
+one copy a step are summed over the ranks first (each rank's are its share
+of the global batch's), so every rank logs the global batch's losses and
+sees a non-finite one, or gradient norm, at the same iteration. Rank 0
+alone writes the log file and the checkpoints, then every rank waits at a
+barrier; every rank resumes from the same file.
 """
 
 from __future__ import annotations
@@ -40,19 +51,21 @@ import numpy as np
 import torch
 
 from ..data.loader import prefetch
+from ..parallel import comm
+from ..parallel.mesh import current_mesh, mesh_size_for, replicate, shard_batch
 from ..train.optim import schedule_factor
 from ..utils.checkpoint import Checkpointer, restore_training_state, training_state
 from ..utils.logger import setup_logger
 from ..utils.metric_logger import MetricLogger
 
 
-def check_one_device(cfg) -> None:
-    """Raise unless TPU.MESH_SHAPE asks for one device (-1: all, which the
-    port's single-device loop takes as one)."""
-    shape = [int(n) for n in cfg.TPU.MESH_SHAPE]
-    if shape not in ([-1], [1]):
-        raise NotImplementedError(f"TPU.MESH_SHAPE {shape}: the loop runs on one device; data parallelism over "
-                                  f"several is not ported yet (ROADMAP item 19)")
+# per-step values that every rank holds alike: never summed over the ranks
+REPLICATED = ("mt_weight",)
+
+
+def _sharded(batches, mesh):
+    for b in batches:
+        yield shard_batch(b, mesh)
 
 
 def _pinned(batches):
@@ -67,20 +80,29 @@ class MTTrainer:
         self.steps = steps
         self.cfg = cfg = steps.cfg
         self.mt = steps.mt
-        check_one_device(cfg)
         self.device = next(steps.model.parameters()).device
+        mesh_size_for(cfg, int(cfg.SOLVER.IMS_PER_BATCH), comm.get_world_size())
+        self.mesh = mesh = current_mesh(self.device)
         on_card = self.device.type == "cuda"
         depth = int(cfg.DATALOADER.PREFETCH_DEPTH)
-        wrap = lambda it: prefetch(_pinned(it) if on_card else it, depth)  # noqa: E731
+
+        def wrap(it):
+            it = _sharded(it, mesh) if mesh.world > 1 else it
+            return prefetch(_pinned(it) if on_card else it, depth)
+
         self.source_loader = wrap(source_loader)
         self.unlabeled_loader = wrap(unlabeled_loader) if unlabeled_loader is not None else None
-        self.logger = setup_logger("mmt_psm_tpu_torch.trainer", output_dir)
+        self.logger = setup_logger("mmt_psm_tpu_torch.trainer", output_dir, distributed_rank=mesh.rank)
         self.meters = MetricLogger()
         self.max_iter = int(cfg.SOLVER.MAX_ITER)
         self.checkpoint_period = int(cfg.SOLVER.CHECKPOINT_PERIOD)
         self.lr_factor = schedule_factor(cfg)
         self.ckpt = Checkpointer(output_dir)
-        self.logger.info(f"training on {self.device}")
+        for module in (steps.model, steps.teacher):
+            if module is not None:
+                replicate(module, mesh)
+        self.logger.info(f"training on {self.device}, data-parallel mesh: {mesh.world} process(es)"
+                         + (f" over {mesh.backend}" if mesh.backend else ""))
 
     def _use_mt(self, iteration: int) -> bool:
         return self.unlabeled_loader is not None and iteration > self.mt.start_mt and self.mt.lambda_ > 0
@@ -126,18 +148,20 @@ class MTTrainer:
                 losses = self._mt_step(batch, self._to_device(next(self.unlabeled_loader)))
             else:
                 losses = self._sup_step(batch)
-            # one copy to the host, not one per scalar
+            # one copy to the host, not one per scalar; the losses summed over
+            # the ranks first (the gradient norm is already the global one)
+            losses = comm.global_losses(losses, REPLICATED)
             read = [v.float() for v in losses.values()]
             if self.steps.grad_norm is not None:
                 read.append(self.steps.grad_norm.float())
             values = torch.stack(read).cpu().tolist()
+            named = dict(zip([*losses, "grad_norm"], values))
             if not all(math.isfinite(v) for v in values):
-                named = zip([*losses, "grad_norm"], values)
                 raise FloatingPointError(f"iteration {iteration}: the run diverged: "
-                                         + ", ".join(f"{k} {v}" for k, v in named if not math.isfinite(v)))
+                                         + ", ".join(f"{k} {v}" for k, v in named.items() if not math.isfinite(v)))
             batch_time = time.time() - end
             end = time.time()
-            self.meters.update(time=batch_time, **dict(zip(losses, values)))
+            self.meters.update(time=batch_time, **{k: named[k] for k in losses})
 
             if iteration % 20 == 0 or iteration == self.max_iter - 1:
                 eta = self.meters.meters["time"].global_avg * (self.max_iter - iteration)

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import losses as L
+from ..parallel import comm
 from ..ops.box_coder import decode, encode
 from ..ops.matcher import BETWEEN_THRESHOLDS, match
 from ..ops.nms import NEG_INF, nms_topk
@@ -37,10 +38,13 @@ from ..structures.detections import Detections, GroundTruth, Proposals
 from .layers import Linear, normal_, variance_scaling_
 
 
-def dropout(x, p: float, gen: torch.Generator):
+def dropout(x, p: float, gen: torch.Generator, views: int = 1):
     """flax's ``Dropout``: keep with probability 1-p, scale kept values by
-    1/(1-p), the mask drawn from ``gen``."""
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    1/(1-p), the mask drawn from ``gen``. x's rows are ``views`` stacked
+    groups of this rank's RoIs; under data parallelism the mask of the
+    global batch is drawn and the rank keeps its rows of each group."""
+    u = torch.rand((comm.global_rows(x.shape[0]), *x.shape[1:]), generator=gen, device=x.device)
+    keep = comm.rank_rows(u, groups=views) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -56,9 +60,10 @@ class FPN2MLPExtractor(nn.Module):
             variance_scaling_(m.weight, 1.0 / 3, "fan_in", "uniform", gen)
             nn.init.zeros_(m.bias)
 
-    def forward(self, pooled, gen: torch.Generator | None = None):
+    def forward(self, pooled, gen: torch.Generator | None = None, views: int = 1):
         """pooled [N, P, P, C] -> [N, mlp_dim]. In training mode with a
-        dropout rate, ``gen`` draws the dropout masks."""
+        dropout rate, ``gen`` draws the dropout masks (N holds ``views``
+        stacked groups of the batch's RoIs)."""
         c, p = self.in_channels, self.resolution
         drop = self.training and self.dropout > 0
         if drop and gen is None:
@@ -67,9 +72,9 @@ class FPN2MLPExtractor(nn.Module):
         x = pooled.reshape(pooled.shape[0], -1)
         x = F.relu(F.linear(x, w6.to(x.dtype), self.fc6.bias.to(x.dtype)))
         if drop:
-            x = dropout(x, self.dropout, gen)
+            x = dropout(x, self.dropout, gen, views)
         x = F.relu(self.fc7(x))
-        return dropout(x, self.dropout, gen) if drop else x
+        return dropout(x, self.dropout, gen, views) if drop else x
 
 
 class FPNPredictor(nn.Module):
@@ -132,11 +137,13 @@ def box_head_loss(class_logits, box_regression, rois: SampledRoIs):
     regs = box_regression.reshape(-1, 4 * c).float()
     labels = rois.labels.reshape(-1)
     valid = rois.valid.reshape(-1).float()
-    cls_loss = L.softmax_ce(logits, labels, weight=valid)
+    # both losses count the sampled RoIs of the global batch
+    count = comm.global_sum(valid.sum())
+    cls_loss = L.softmax_ce(logits, labels, weight=valid, normalizer=count)
     offs = 4 * labels.clamp(min=0)[:, None] + torch.arange(4, device=labels.device)[None, :]
     box_loss = L.smooth_l1_sum(torch.gather(regs, 1, offs), rois.reg_targets.reshape(-1, 4), beta=1.0,
                                weight=rois.is_pos.reshape(-1).float()[:, None])
-    return cls_loss, box_loss / valid.sum().clamp(min=1.0)
+    return cls_loss, box_loss / count.clamp(min=1.0)
 
 
 def postprocess_boxes(class_logits, box_regression, proposals: Proposals, image_sizes, *, num_classes: int,

@@ -370,10 +370,11 @@ class MaskRCNN(nn.Module):
         scales = self.config.pooler_scales
         return multilevel_roi_align(features[: len(scales)], boxes, scales, resolution, sampling)
 
-    def box_forward(self, features, boxes, gen: torch.Generator | None = None):
+    def box_forward(self, features, boxes, gen: torch.Generator | None = None, views: int = 1):
         """-> (class logits [B, S, C], box deltas [B, S, 4C], the relation
         head's features [B, S, D]: fc7, or the C4 head's spatial mean);
-        ``gen`` draws the train-mode dropout masks."""
+        ``gen`` draws the train-mode dropout masks, B holding ``views``
+        stacked groups of the batch's images."""
         c = self.config
         pooled = self.pool(features, boxes, c.box_pooler_resolution, c.box_pooler_sampling)
         b, s = pooled.shape[:2]
@@ -384,7 +385,7 @@ class MaskRCNN(nn.Module):
             logits, regs = box.predictor(x)
             feats = x.mean(dim=(2, 3))
         else:
-            feats = box.feature_extractor(flat, gen)
+            feats = box.feature_extractor(flat, gen, views)
             logits, regs = box.predictor(feats)
         return logits.reshape(b, s, -1), regs.reshape(b, s, -1), feats.reshape(b, s, -1)
 
@@ -433,14 +434,16 @@ class MaskRCNN(nn.Module):
         """MGD embeddings of each level (generalized_rcnn.py:218-222)."""
         return self.hint_adaptor(features)
 
-    def box_predictions(self, features, boxes, deterministic: bool = True, gen: torch.Generator | None = None):
+    def box_predictions(self, features, boxes, deterministic: bool = True, gen: torch.Generator | None = None,
+                        views: int = 1):
         """Pool, box head and predictor on given per-image box sets
         (box_head.py:77-100): (class logits, box deltas, features).
-        ``deterministic`` runs no dropout; else ``gen`` draws its masks.
+        ``deterministic`` runs no dropout; else ``gen`` draws its masks,
+        the boxes holding ``views`` stacked groups of the batch's images.
         The JAX ``roi_chunk`` bounds a TPU temporary of its pooling
         contraction; kernel K2 has no such temporary, so the port pools
         every RoI of the stacked views in one launch."""
-        return self.box_forward(features, boxes, None if deterministic else gen)
+        return self.box_forward(features, boxes, None if deterministic else gen, views)
 
     def teacher_proposals(self, features, image_sizes, pseudo_gt: GroundTruth):
         """Train-mode proposal selection against pseudo ground truth

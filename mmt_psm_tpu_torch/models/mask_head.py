@@ -21,6 +21,7 @@ from torch import nn
 from ..ops import losses as L
 from ..ops.pooler import _axis_samples, multilevel_roi_align
 from ..ops.topk import top_k
+from ..parallel import comm
 from .layers import Conv2d, ConvTranspose2d, variance_scaling_
 
 _CROP_ROI_CHUNK = 32
@@ -181,5 +182,5 @@ def mask_head_loss(mask_logits, mask_targets, labels, valid):
     lab = labels.clamp(min=0).long()
     sel = torch.gather(mask_logits.float(), -1, lab[:, :, None, None, None].expand(*mask_logits.shape[:4], 1))[..., 0]
     w = valid.float()[:, :, None, None]
-    denom = (w.sum() * sel.shape[-1] * sel.shape[-2]).clamp(min=1.0)
+    denom = (comm.global_sum(w.sum()) * sel.shape[-1] * sel.shape[-2]).clamp(min=1.0)
     return (L.bce_with_logits(sel, mask_targets) * w).sum() / denom

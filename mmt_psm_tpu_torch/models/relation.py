@@ -27,6 +27,7 @@ from torch import nn
 from ..ops.box_coder import decode
 from ..ops.nms import nms_topk
 from ..ops.topk import top_k
+from ..parallel import comm
 from ..structures.boxes import box_iou, clip_to_image
 from .layers import Conv2d, Linear, variance_scaling_
 
@@ -238,7 +239,7 @@ def prepare_nms_labels(sorted_boxes, sorted_scores, gt_boxes, gt_labels, gt_vali
 
 
 def relation_nms_loss(out, gt_boxes, gt_labels, gt_valid, cfg: RelationNMSConfig):
-    """The mean over images of each image's relation-NMS loss."""
+    """The mean over the global batch's images of each image's relation-NMS loss."""
     labels = prepare_nms_labels(out["sorted_boxes"], out["sorted_scores"], gt_boxes, gt_labels, gt_valid,
                                 cfg.threshs, cfg.reg_iou)
     valid = out["sorted_valid"][..., None].float()
@@ -248,7 +249,7 @@ def relation_nms_loss(out, gt_boxes, gt_labels, gt_valid, cfg: RelationNMSConfig
         p = (out["sorted_scores"][..., None] * out["logits"]).clamp(1e-6, 1 - 1e-6)
         per_item = -(labels * torch.log(p) + (1 - labels) * torch.log(1 - p))
     per_image = (per_item * valid).sum((1, 2, 3)) / valid.sum((1, 2, 3)).clamp(min=1.0)
-    return per_image.mean()
+    return comm.batch_mean(per_image)
 
 
 def relation_nms_inference(out, cfg: RelationNMSConfig):

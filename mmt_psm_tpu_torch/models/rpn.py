@@ -27,6 +27,7 @@ from ..ops.matcher import BETWEEN_THRESHOLDS, match
 from ..ops.nms import NEG_INF, nms_topk
 from ..ops.sampler import sample
 from ..ops.topk import top_k
+from ..parallel import comm
 from ..structures.boxes import box_iou, clip_to_image, nonempty_mask
 from ..structures.detections import GroundTruth, Proposals
 from .anchors import visibility
@@ -117,7 +118,7 @@ def select_proposals(objectness, box_regression, anchors, image_sizes, *, pre_nm
     if is_train:
         # the k_out best over the whole batch, compacted into each image's first slots
         flat = masked.reshape(-1)
-        kth = top_k(flat, min(k_out, flat.shape[0]))[0][-1]
+        kth = comm.global_kth(flat, min(k_out, comm.global_rows(flat.shape[0])))
         masked = torch.where(valid & (masked >= kth), scores, NEG_INF)
     top_scores, top_idx = top_k(masked, k_out)
     out_valid = top_scores > NEG_INF / 2
@@ -158,5 +159,5 @@ def rpn_loss(r, objectness, box_regression, anchors, image_sizes, gt: GroundTrut
     box_num = L.smooth_l1_sum(torch.gather(reg, 1, idx4), torch.gather(targets, 1, idx4), beta=1.0 / 9,
                               weight=is_pos.float()[..., None])
     obj_num = (valid.float() * L.bce_with_logits(s_obj, s_lab)).sum()
-    total = valid.float().sum().clamp(min=1.0)
+    total = comm.global_sum(valid.float().sum()).clamp(min=1.0)
     return obj_num / total, box_num / total

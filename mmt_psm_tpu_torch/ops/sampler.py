@@ -13,12 +13,18 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import comm
+
 
 def uniform(gen: torch.Generator, shape, device) -> torch.Tensor:
-    """The sampler's draws: U[0, 1) f32 of ``shape`` from ``gen``.
+    """The sampler's draws: U[0, 1) f32 of ``shape`` from ``gen``, its
+    leading axis this rank's images. Under data parallelism the table of
+    the global batch is drawn (every rank's generator alike) and the rank
+    keeps its rows, so the draws are those of one process on the global batch.
 
     The train step's sampler draws come from here, so a test can replace it."""
-    return torch.rand(shape, generator=gen, device=device)
+    shape = tuple(shape)
+    return comm.rank_rows(torch.rand((comm.global_rows(shape[0]), *shape[1:]), generator=gen, device=device))
 
 
 def sample(r: torch.Tensor, labels: torch.Tensor, batch_size: int, positive_fraction: float):

@@ -10,9 +10,14 @@ px from two synthetic slides), and writes ``result.json`` and
 ``best_result.json`` (AJI per class and its mean, mAP, AP50/75/85, F1 per
 class, images/s per checkpoint), and ``metrics.png`` where matplotlib
 imports. The config defaults to the flagship's
-(``configs/pap/mmt_psm_r50_fpn.yaml``: the port runs FPN configs with
-relation-NMS only). It runs on the card unless ``--device`` names another
-device.
+(``configs/pap/mmt_psm_r50_fpn.yaml``). It runs on the card unless
+``--device`` names another device.
+
+Under ``torchrun --nproc_per_node W -m mmt_psm_tpu_torch.tools.test_net ...``
+(WORLD_SIZE > 1) each rank joins the process group on ``cuda:LOCAL_RANK``
+(``--device``, where given, must name that card, or the CPU over gloo),
+scores its shard of the windows, and every rank gets the whole split's
+stats (``engine/inference.py``); rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -41,11 +46,13 @@ def main(argv=None) -> dict:
     from ..data.pap import synthetic_slide_dataset
     from ..data.transforms import PIXEL_MEAN_BGR
     from ..engine.inference import check_expected_results, run_inference
-    from ..models.detector import FLAGSHIP_CONFIG, model_from_cfg, resolve_device
+    from ..data.samplers import ShardSampler
+    from ..models.detector import FLAGSHIP_CONFIG, model_from_cfg
+    from ..parallel import comm
     from ..utils.checkpoint import Checkpointer, load_model_weights
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = comm.launch_device(args.device)
     cfg = get_cfg()
     cfg.merge_from_file(args.config_file or FLAGSHIP_CONFIG)
     if args.opts:
@@ -83,8 +90,10 @@ def main(argv=None) -> dict:
     results = {}
     for name in names:
         load_model_weights(model, ckpt.load(name)["model"])
+        shard = ShardSampler(len(ds), comm.get_world_size(), comm.get_rank(), shuffle=False)
         loader = make_test_loader(ds, cfg.TEST.IMS_PER_BATCH, canvas, max_gt=cfg.TPU.MAX_GT, min_size=min_size,
-                                  max_size=canvas, raw_u8=True)
+                                  max_size=canvas, raw_u8=True,
+                                  indices=shard if comm.get_world_size() > 1 else None)
         stats, timing = run_inference(
             model, loader, eval_workers=int(cfg.TEST.EVAL_WORKERS), prefetch_depth=int(cfg.DATALOADER.PREFETCH_DEPTH),
             visual_num=cfg.TEST.VISUAL_NUM,
@@ -94,15 +103,18 @@ def main(argv=None) -> dict:
         if cfg.TEST.EXPECTED_RESULTS:
             check_expected_results(stats, cfg.TEST.EXPECTED_RESULTS, cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL)
         results[name] = summary(stats, timing)
-        print(name, json.dumps(results[name]), flush=True)
+        if comm.is_main_process():
+            print(name, json.dumps(results[name]), flush=True)
 
-    with open(os.path.join(out_dir, "result.json"), "w") as f:
-        json.dump(results, f, indent=2)
     best = max(results, key=lambda n: results[n]["AJI_mean"])
-    with open(os.path.join(out_dir, "best_result.json"), "w") as f:
-        json.dump({best: results[best]}, f, indent=2)
-    plot_metric_curves(results, out_dir)
-    print("best:", best, results[best]["AJI_mean"], flush=True)
+    if comm.is_main_process():
+        with open(os.path.join(out_dir, "result.json"), "w") as f:
+            json.dump(results, f, indent=2)
+        with open(os.path.join(out_dir, "best_result.json"), "w") as f:
+            json.dump({best: results[best]}, f, indent=2)
+        plot_metric_curves(results, out_dir)
+        print("best:", best, results[best]["AJI_mean"], flush=True)
+    comm.synchronize()
     return results
 
 

@@ -19,6 +19,15 @@ JAX CLI does, so it sees the first batches again. After training, unless
 ``--skip-test``, a test-time model takes the student's weights and
 ``run_inference`` scores it on the val split; ``final_eval.json`` holds the
 JAX CLI's keys. Runs on the card unless ``--device`` names another device.
+
+Data parallelism: ``torchrun --nproc_per_node W -m
+mmt_psm_tpu_torch.tools.train_mean_teacher ...`` (WORLD_SIZE > 1) runs one
+rank a card, each on ``cuda:LOCAL_RANK`` (``--device``, where given, must
+name that card, or the CPU over gloo). Each step is the single-process step
+on the global batch of SOLVER.IMS_PER_BATCH images
+(``engine/trainer.py``); rank 0 writes ``config.yaml``, the log, the
+checkpoints and ``final_eval.json``, and the val sweep is sharded over the
+ranks (``engine/inference.py``).
 """
 
 from __future__ import annotations
@@ -69,11 +78,12 @@ def main(argv=None) -> dict:
     it began, "final_eval": the val summary or None}."""
     from ..data.loader import make_source_loader, make_unlabeled_loader
     from ..engine.trainer import MTTrainer
-    from ..models.detector import FLAGSHIP_CONFIG, resolve_device
+    from ..models.detector import FLAGSHIP_CONFIG
+    from ..parallel import comm
     from ..train import build_mt_trainer
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = comm.launch_device(args.device)
     steps = build_mt_trainer(args.config_file or FLAGSHIP_CONFIG, device=device, seed=0, opts=args.opts)
     cfg = steps.cfg
     canvas = steps.model.config.image_size
@@ -93,12 +103,14 @@ def main(argv=None) -> dict:
         # the teacher starts as a copy of the initialised student (JAX copies
         # it from the loaded params, engine/trainer.py:77)
         steps.teacher.load_state_dict(steps.model.state_dict())
-        print(f"loaded {len(report['loaded'])} tensors from {args.weights}; missing {len(report['missing'])}, "
-              f"mismatched {len(report['mismatched'])}", flush=True)
+        if comm.is_main_process():
+            print(f"loaded {len(report['loaded'])} tensors from {args.weights}; missing {len(report['missing'])}, "
+                  f"mismatched {len(report['mismatched'])}", flush=True)
 
     os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
+    if comm.is_main_process():
+        with open(os.path.join(args.output_dir, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
 
     trainer = MTTrainer(steps, src_loader, unl_loader, output_dir=args.output_dir)
     # a tag in the run dir wins over the init weights (reference
@@ -121,8 +133,10 @@ def final_eval(cfg, student, args, canvas: int, min_size: int, device):
     ``run_inference``; writes and returns ``final_eval.json``'s summary."""
     from ..data.loader import make_test_loader
     from ..data.pap import synthetic_slide_dataset
+    from ..data.samplers import ShardSampler
     from ..engine.inference import run_inference
     from ..models.detector import model_from_cfg
+    from ..parallel import comm
     from ..utils.checkpoint import load_model_weights
 
     if args.synthetic:
@@ -137,8 +151,11 @@ def final_eval(cfg, student, args, canvas: int, min_size: int, device):
         return None
     model = model_from_cfg(cfg, device)
     load_model_weights(model, student.state_dict())
+    world = comm.get_world_size()
     loader = make_test_loader(val_ds, cfg.TEST.IMS_PER_BATCH, canvas, max_gt=cfg.TPU.MAX_GT, min_size=min_size,
-                              max_size=canvas, raw_u8=True)
+                              max_size=canvas, raw_u8=True,
+                              indices=ShardSampler(len(val_ds), world, comm.get_rank(), shuffle=False)
+                              if world > 1 else None)
     stats, timing = run_inference(model, loader, eval_workers=int(cfg.TEST.EVAL_WORKERS),
                                   prefetch_depth=int(cfg.DATALOADER.PREFETCH_DEPTH))
     aji = {str(k): v for k, v in stats["AJI"].items()}
@@ -149,9 +166,11 @@ def final_eval(cfg, student, args, canvas: int, min_size: int, device):
         "AP50": stats["AP50"].get("all", -1),
         "images_per_sec": timing["images_per_sec"],
     }
-    with open(os.path.join(args.output_dir, "final_eval.json"), "w") as f:
-        json.dump(summary, f, indent=2)
-    print("final_eval:", json.dumps(summary), flush=True)
+    if comm.is_main_process():
+        with open(os.path.join(args.output_dir, "final_eval.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+        print("final_eval:", json.dumps(summary), flush=True)
+    comm.synchronize()
     return summary
 
 

@@ -45,6 +45,7 @@ from ..models.box_head import subsample_proposals
 from ..ops import sampler
 from ..ops.paste import paste_integral
 from ..ops.topk import top_k
+from ..parallel import comm
 from ..structures.boxes import hflip_boxes
 from ..structures.detections import GroundTruth
 from ..utils.ramp import F32, sigmoid_rampdown, sigmoid_rampup
@@ -129,8 +130,10 @@ def psm_loss(student_logits_views, teacher_logits_views, labels, valid, mt: MTCo
 
     student/teacher_logits_views: lists of [B, S, C]; labels/valid [B, S]
     from the subsampling against the pseudo gt. The selection runs over the
-    flattened batch, as the reference's cat over images (box_head/loss.py:187).
-    Ranks, counts and weights stay on the device."""
+    flattened batch, as the reference's cat over images (box_head/loss.py:187):
+    under data parallelism over the global batch, whose negatives' spreads
+    every rank gathers to rank them. Ranks, counts and weights stay on the
+    device."""
     c = num_classes
     t = torch.stack([x.reshape(-1, c).float() for x in teacher_logits_views]).detach()  # [Vt, N, C]
     labels_f = labels.reshape(-1)
@@ -143,14 +146,14 @@ def psm_loss(student_logits_views, teacher_logits_views, labels, valid, mt: MTCo
 
     pos = (labels_f > 0) & valid_f
     neg = (labels_f == 0) & valid_f
-    n_pos = pos.sum()
+    n_pos = comm.global_sum(pos.sum())
 
     # hard negatives: the top n_pos // 2 by sigma among the negatives, through
     # the rank of a stable sort (ties by index, as jnp.argsort)
-    neg_sigma = torch.where(neg, sigma, -torch.inf)
+    neg_sigma = comm.gather_rows(torch.where(neg, sigma, -torch.inf))
     order = top_k(neg_sigma, neg_sigma.shape[0])[1]
     rank = torch.empty_like(order).scatter_(0, order, torch.arange(order.shape[0], device=order.device))
-    keep_neg = neg & (rank < n_pos // 2)
+    keep_neg = neg & (comm.rank_rows(rank) < n_pos // 2)
 
     sel = pos | keep_neg
     w = pos.float() + keep_neg.float() * (mt.cls_balance_weight if mt.hard_neg else 1.0)
@@ -160,7 +163,7 @@ def psm_loss(student_logits_views, teacher_logits_views, labels, valid, mt: MTCo
         p = target ** (1.0 / mt.temp)
         target = p / p.sum(-1, keepdim=True)
 
-    n_sel = sel.sum().clamp(min=1)
+    n_sel = comm.global_sum(sel.sum()).clamp(min=1)
     losses = []
     for s_logits in student_logits_views:
         logp = torch.log_softmax(s_logits.reshape(-1, c).float(), dim=-1)
@@ -180,15 +183,17 @@ def mgd_loss(teacher_emb_views, student_emb_views, integral_canvas, mt: MTConfig
     integral_canvas: [B, Hc, Wc] pasted instance-mask counts at
     ``mgd_canvas_stride``."""
     masks = [_pooled_mask(integral_canvas, f.shape[1]) for f in teacher_emb_views[0]]
+    # each level's mask area over the global batch
+    areas = comm.global_sum(torch.stack([m.sum() for m in masks]))
     dists = []
     for vi, t_view in enumerate(teacher_emb_views):
         t_view = [(hflip_feature(f) if vi % 2 == 1 else f).detach().float() for f in t_view]
         for si, s_view in enumerate(student_emb_views):
-            for s_f, t_f, m in zip(s_view, t_view, masks):
+            for s_f, t_f, m, area in zip(s_view, t_view, masks, areas):
                 s_f = s_f.float()
                 if si % 2 == 1:
                     s_f = hflip_feature(s_f)
-                dists.append((((s_f - t_f) ** 2) * m).sum() / (m.sum() * s_f.shape[-1] + 1e-7))
+                dists.append((((s_f - t_f) ** 2) * m).sum() / (area * s_f.shape[-1] + 1e-7))
     return torch.stack(dists).mean()
 
 
@@ -206,7 +211,7 @@ def odkd_loss(student_logits, teacher_logits, labels, valid, neg_weight: float =
     w = torch.where(labels_f == 0, neg_weight, 1.0) * valid_f
     per = -target * logp * w[:, None]
     # reference: the elementwise mean over all (rows x classes)
-    return per.sum() / (valid_f.sum() * c).clamp(min=1.0)
+    return per.sum() / (comm.global_sum(valid_f.sum()) * c).clamp(min=1.0)
 
 
 def ffi_hint_loss(teacher_emb_view0, student_emb_view0, box_canvas):
@@ -218,13 +223,13 @@ def ffi_hint_loss(teacher_emb_view0, student_emb_view0, box_canvas):
         s_f = s_f.float()
         t_f = t_f.float().detach()
         m = _pooled_mask(box_canvas, s_f.shape[1])
-        dists.append((((s_f - t_f) ** 2) * m).sum() / (m.sum() * s_f.shape[-1]).clamp(min=1.0))
+        dists.append((((s_f - t_f) ** 2) * m).sum() / (comm.global_sum(m.sum()) * s_f.shape[-1]).clamp(min=1.0))
     return torch.stack(dists).mean()
 
 
 def naive_hint_loss(teacher_emb_view0, student_emb_view0):
     """ODKD's naive hint: unmasked feature MSE (generalized_rcnn.py:296-302)."""
-    dists = [((s_f.float() - t_f.float().detach()) ** 2).mean()
+    dists = [comm.batch_mean((s_f.float() - t_f.float().detach()) ** 2)
              for s_f, t_f in zip(student_emb_view0, teacher_emb_view0)]
     return torch.stack(dists).mean()
 
@@ -374,7 +379,7 @@ def unlabeled_losses(student, teacher, batch, gen: torch.Generator, mt: MTConfig
     if use_psm:
         with record_function("mt_psm"):
             s_boxes_all = torch.cat([flipped_boxes if si % 2 == 1 else rois_boxes for si in range(n_s)])
-            s_logits_all = student.box_predictions(s_feats_all, s_boxes_all, False, gen)[0]
+            s_logits_all = student.box_predictions(s_feats_all, s_boxes_all, False, gen, views=n_s)[0]
             s_logits = [s_logits_all[si * bsz:(si + 1) * bsz] for si in range(n_s)]
             if mt.odkd:
                 # ODKD takes precedence over PSM (generalized_rcnn.py:193-196,

@@ -10,6 +10,15 @@ for the CPU. ``Trainer.step(batch)`` makes one step and returns the loss
 dict as tensors: nothing between the forward and the optimizer step waits
 on the card, so read the losses after the step.
 
+Data parallelism (a process group of W ranks, one per card, each holding
+an equal block of the global batch): each rank's losses are its own
+numerators over the global batch's normalizers (``parallel/comm.py``), so
+``update`` sums the ranks' gradients, in one bucket, before the clip, and
+every rank takes the same SGD step and EMA: the single-process step on the
+global batch. ``DistributedDataParallel`` does not fit: it averages the
+gradients, and it hooks ``forward``, while the steps call ``forward_train``
+and the mean-teacher losses.
+
 Two counters, as in the JAX package: ``Trainer.iteration`` (the JAX
 ``TrainState.step``) gates the teacher EMA and the mean-teacher step and
 drives the consistency ramp; the learning rate follows the optimizer's own
@@ -23,6 +32,7 @@ import torch
 from torch.profiler import record_function
 
 from ..models.detector import FLAGSHIP_CONFIG, load_config, model_from_cfg, resolve_device
+from ..parallel import comm
 from ..structures.detections import GroundTruth
 from .ema import ema_update_
 from .mt_step import MTConfig
@@ -70,7 +80,8 @@ class Trainer:
         return out
 
     def update(self, total: torch.Tensor) -> None:
-        """Backward of ``total``, clip, SGD step, then the teacher EMA."""
+        """Backward of ``total``, the gradients summed over the ranks, clip,
+        SGD step, then the teacher EMA."""
         for t in self.clip_tensors:
             t.grad = None
         # the labels name the phases in a torch.profiler trace (scripts/profile_torch_port.py --train)
@@ -79,10 +90,12 @@ class Trainer:
         with record_function("optimizer_step"):
             # optax decays and carries momentum for every trainable tensor,
             # one without a gradient in this step too (the hint adaptor in a
-            # supervised step): give such tensors a zero gradient
-            for p in self.trainable:
+            # supervised step): give such tensors a zero gradient, and so
+            # every rank reduces the same tensors
+            for p in self.clip_tensors:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            comm.all_reduce_grads_(self.clip_tensors)
             if self.max_norm > 0:
                 self.grad_norm = clip_grad_norm_(self.clip_tensors, self.max_norm)
             self.optimizer.step()

@@ -20,6 +20,9 @@ because JAX derives each step's draws from a fixed key and the step, while
 a ``torch.Generator`` advances with every draw: without its state a resumed
 run would draw other dropout masks and samples than a straight one.
 ``restore_training_state`` loads such a payload back in place.
+
+In a process group only rank 0 writes; every rank then waits at a barrier
+in ``save``, so a rank that loads next finds the file complete.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import os
 from typing import Any
 
 import torch
+
+from ..parallel import comm
 
 TAG_FILE = "last_checkpoint"
 
@@ -45,11 +50,14 @@ class Checkpointer:
 
     def save(self, name: str, tree: Any, tag: bool = True) -> str:
         """Save ``tree`` under ``name`` (e.g. model_0000100); with ``tag``,
-        point ``last_checkpoint`` at it."""
+        point ``last_checkpoint`` at it. Rank 0 writes, every rank returns
+        after it has."""
         path = self.path(name)
-        _write_atomic(path, lambda f: torch.save(tree, f))
-        if tag:
-            _write_atomic(self._tag_file(), lambda f: f.write(name.encode()))
+        if comm.is_main_process():
+            _write_atomic(path, lambda f: torch.save(tree, f))
+            if tag:
+                _write_atomic(self._tag_file(), lambda f: f.write(name.encode()))
+        comm.synchronize()
         return path
 
     def has_checkpoint(self) -> bool:

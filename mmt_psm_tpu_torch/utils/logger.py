@@ -1,6 +1,8 @@
 """Logging setup (the port's copy of ``mmt_psm_tpu/utils/logger.py``, after
 the reference's maskrcnn_benchmark/utils/logger.py:7-28): one stdout
-handler and one ``<save_dir>/log.txt`` file handler per logger."""
+handler and one ``<save_dir>/log.txt`` file handler per logger, on rank 0
+of a process group; the other ranks' loggers get no handler (Python's
+last resort prints their warnings)."""
 
 from __future__ import annotations
 
@@ -11,10 +13,13 @@ import sys
 _FORMAT = "%(asctime)s %(name)s %(levelname)s: %(message)s"
 
 
-def setup_logger(name: str, save_dir: str | None = None, filename: str = "log.txt") -> logging.Logger:
+def setup_logger(name: str, save_dir: str | None = None, filename: str = "log.txt",
+                 distributed_rank: int = 0) -> logging.Logger:
     logger = logging.getLogger(name)
     logger.setLevel(logging.DEBUG)
     logger.propagate = False  # the root logger would print each line twice
+    if distributed_rank > 0:
+        return logger
     streams = [h for h in logger.handlers if isinstance(h, logging.StreamHandler)
                and not isinstance(h, logging.FileHandler)]
     if not streams:

@@ -37,6 +37,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 FLAGSHIP = os.path.join(REPO, "configs", "pap", "mmt_psm_r50_fpn.yaml")
 SIZE, BATCH = 128, 2
+OPTS = ["TPU.IMAGE_SIZE", SIZE, "TPU.COMPUTE_DTYPE", "float32", "SOLVER.IMS_PER_BATCH", BATCH]
 
 
 def flatten(tree, prefix=()):
@@ -66,15 +67,15 @@ def first_batches(opts):
     return lab, unl
 
 
-def run_jax(opts, lab, unl, steps: int, seed: int):
+def jax_init(opts, lab):
+    """(the JAX config tree, model and its parameters): the JAX train CLI's
+    init from PRNGKey(0) on the labeled batch ``lab``."""
     import jax
     import jax.numpy as jnp
 
     from mmt_psm_tpu.config import get_cfg
     from mmt_psm_tpu.models import MaskRCNN, ModelConfig
-    from mmt_psm_tpu.train.mt_step import MTConfig, make_mt_step
-    from mmt_psm_tpu.train.optim import make_optimizer
-    from mmt_psm_tpu.train.supervised import batch_to_gt, create_train_state
+    from mmt_psm_tpu.train.supervised import batch_to_gt
 
     cfg = get_cfg()
     cfg.merge_from_file(FLAGSHIP)
@@ -84,6 +85,19 @@ def run_jax(opts, lab, unl, steps: int, seed: int):
     init_fn = jax.jit(lambda rngs, img, sz, gt: model.init(rngs, img, sz, gt, method=model.init_all))
     params = init_fn({"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1),
                       "dropout": jax.random.PRNGKey(2)}, b0["image"], b0["image_size"], batch_to_gt(b0))["params"]
+    return cfg, model, params
+
+
+def run_jax(opts, lab, unl, steps: int, seed: int):
+    import jax
+    import jax.numpy as jnp
+
+    from mmt_psm_tpu.train.mt_step import MTConfig, make_mt_step
+    from mmt_psm_tpu.train.optim import make_optimizer
+    from mmt_psm_tpu.train.supervised import create_train_state
+
+    cfg, model, params = jax_init(opts, lab)
+    b0 = {k: jnp.asarray(v) for k, v in lab.items()}
     mt = MTConfig.from_cfg(cfg)
     tx, _ = make_optimizer(cfg, params)
     state = create_train_state(params, tx, with_teacher=True).replace(step=jnp.asarray(mt.start_mt + 1, jnp.int32))
@@ -110,7 +124,9 @@ def run_jax(opts, lab, unl, steps: int, seed: int):
     return record, init
 
 
-def run_port(opts, lab, unl, steps: int, flat, seed: int):
+def port_trainer(opts, flat, seed: int):
+    """The port's MT trainer on the CPU at iteration START_MT + 1, the
+    student and teacher the JAX init ``flat``, draws from ``seed``."""
     import numpy as np
     import torch
 
@@ -123,6 +139,16 @@ def run_port(opts, lab, unl, steps: int, flat, seed: int):
         for t, s in zip(*tr.ema_pairs):
             t.copy_(s)
     tr.iteration = tr.mt.start_mt + 1
+    return tr
+
+
+def run_port(opts, lab, unl, steps: int, flat, seed: int, trainer=None):
+    """``steps`` MT steps of the port (of ``trainer``, default
+    ``port_trainer``'s) on the one batch pair."""
+    import numpy as np
+    import torch
+
+    tr = trainer or port_trainer(opts, flat, seed)
     b = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in lab.items()}
     ub = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in unl.items()}
     record = {"first_non_finite": None, "error": None, "losses": {}}
@@ -154,7 +180,7 @@ def main(argv=None) -> dict:
 
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(args.threads)
-    opts = ["TPU.IMAGE_SIZE", SIZE, "TPU.COMPUTE_DTYPE", "float32", "SOLVER.IMS_PER_BATCH", BATCH]
+    opts = OPTS
     lab, unl = first_batches(opts)
     t = time.perf_counter()
     jax_rec, flat = run_jax(opts, lab, unl, args.steps, args.seed)

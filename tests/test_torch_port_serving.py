@@ -186,11 +186,12 @@ def test_device_stage_refuses_float_canvases(pair, datasets):
 
 
 def test_unported_options_raise(pair, tmp_path):
-    """The sharded evaluation (``mesh``) waits for ROADMAP item 19; overlays
-    and .mat export came with item 20 (tests/test_torch_port_datasets_slice.py
-    holds their files to JAX's)."""
+    """JAX's ``mesh`` argument has no counterpart (the sharded evaluation,
+    held in tests/test_torch_port_parallel.py, takes its shard from the
+    loader's indices); overlays and .mat export came with item 20
+    (tests/test_torch_port_datasets_slice.py holds their files to JAX's)."""
     _, _, tm = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
+    with pytest.raises(TypeError, match="mesh"):
         inf.run_inference(tm, [], mesh=object())
     for kw in (dict(visual_num=1, visual_dir=str(tmp_path / "v")), dict(mat_dir=str(tmp_path / "m"))):
         _, timing = inf.run_inference(tm, [], **kw)

@@ -165,14 +165,20 @@ def test_logging_matches_jax(schedules):
     np.testing.assert_allclose([lr for _, lr in pt["logged"]], [lr for _, lr in jx["logged"]], rtol=0, atol=1e-6)
 
 
-def test_loop_runs_on_one_device_and_traces(tmp_path):
-    """TPU.MESH_SHAPE other than [-1] or [1] raises naming ROADMAP item 19;
-    TPU.PROFILE_DIR writes a torch.profiler trace of its window."""
+def test_loop_runs_on_one_device_and_traces(tmp_path, monkeypatch):
+    """A TPU.MESH_SHAPE that would leave a rank of the world out raises
+    naming both (the world read as 2 here; the data-parallel loop itself is
+    held in tests/test_torch_port_dp_loop.py); TPU.PROFILE_DIR writes a
+    torch.profiler trace of its window."""
+    from mmt_psm_tpu_torch.parallel import comm
+
     cfg = get_cfg()
     cfg.merge_from_file(U.FLAGSHIP)
-    cfg.merge_from_list(["TPU.MESH_SHAPE", "[2]"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        trainer.MTTrainer(tiny_step_object(cfg), labeled())
+    cfg.merge_from_list(["TPU.MESH_SHAPE", "[1]"])
+    with monkeypatch.context() as mp:
+        mp.setattr(comm, "get_world_size", lambda: 2)
+        with pytest.raises(ValueError, match="mesh of 1 device.*world has 2 process"):
+            trainer.MTTrainer(tiny_step_object(cfg), labeled())
     prof = tmp_path / "prof"
     cfg.merge_from_list(SCHEDULE + ["TPU.MESH_SHAPE", "[1]", "SOLVER.MAX_ITER", "6", "TPU.PROFILE_DIR", str(prof),
                                     "TPU.PROFILE_START", "1", "TPU.PROFILE_STEPS", "2"])
