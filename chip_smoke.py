@@ -28,7 +28,8 @@ line is printed):
      errors (no host sync); launch counts show K1 and K2 ran on every
      forward;
      one batch also in f32 with the kernels and with the plain versions,
-     TF32 off, whose detections must agree;
+     TF32 off, whose detections must agree (on the weights of seed
+     ``F32_FLAGSHIP_SEED``, where CIAM's attention is well conditioned);
   7. the serving path (``eval bf16``): the same model saved with the
      port's ``Checkpointer``, then ``engine.inference.run_inference`` over
      8 windows of 1024 px of synthetic slides (``EVAL_SLIDES``) whose gt
@@ -88,7 +89,8 @@ line is printed):
      variants.py``: the plain Mask R-CNN with the greedy post-processor,
      set-NMS, the mask relation module's CAM and extractor variants,
      RPN_ONLY, R-50-C4, PRCNN, backbone recomputation), each at the
-     flagship's width (1024 canvas, bf16, batch 4, weights from seed 0):
+     flagship's width (1024 canvas, bf16, batch 4, weights from seed 0; the
+     forwards of C4 and remat from ``VARIANT_FORWARD_SEEDS``):
      a forward with its kernel calls recorded and one timed with
      synchronising calls made errors, then a supervised step (the plain
      Mask R-CNN: ``run_inference`` over the eval phase's windows scored
@@ -151,7 +153,19 @@ line is printed):
      synchronising calls made errors (its all-reduces counted), the loss
      sum, ``all_gather_object`` and the barrier. NCCL at more than one rank
      does not run on one card;
- 17. a ``{"kernels": [...]}`` line with each kernel's time over its calls
+ 17. the learning tools (``learning bf16``), after ``data parallel``: the
+     lift tool's ``main`` (``mmt_psm_tpu_torch/tools/mt_lift_experiment.py``,
+     ``LEARN_LIFT``: the sup and mt arms at 256 px, batch 4, 40 iterations
+     each, MT from iteration 20, 16 unlabeled patches, ``--sharpen
+     --hard-neg``; each arm's loop, its scoring of the 8 held-out slides and
+     the saves, in a temporary directory), then ``synthetic_convergence``'s
+     ``main`` for 20 iterations; the first kernel call of each shape recorded
+     (``FirstOfEachShape``) and held against its plain version and timed; each
+     tool's K1/K2/K3 launches counted from 0 and each above 0; every loss of
+     the loops finite (the loop raises on one that is not), each JSON with
+     exactly its JAX script's keys and the card's line, every number finite;
+     each arm's iterations a second;
+ 18. a ``{"kernels": [...]}`` line with each kernel's time over its calls
      of one flagship forward (K1: the RPN's and relation-NMS's; K2: the box
      head's and the mask head's) or of one train step (K3: the box head's
      and the mask head's), its plain version's time and its bound on this
@@ -161,19 +175,21 @@ line is printed):
      every kernel's over the MT step's recorded calls under ``*_mt``
      keys (plain times too), its launches in the train CLI's loop under
      ``launches_cli``, rank 0's launches over the data-parallel path's timed
-     supervised and MT steps under ``launches_dp`` and, under ``variants``,
+     supervised and MT steps under ``launches_dp``, the learning path's
+     launches and its recorded calls' summed times, bound and error under
+     ``*_learning`` keys and, under ``variants``,
      each variant's launches,
      summed times, bound and error over its recorded calls, after lines
      with each call's own times. A
      kernel's time is the device time of the kernels its wrapper launches
      (torch.profiler), without the host's time to launch them; a plain
      version's is CUDA events around it;
- 18. the throughput in patches/s, evaluated patches/s (the serving path
+ 19. the throughput in patches/s, evaluated patches/s (the serving path
      scored serially, with the host seconds of each of its stages; the
      pool's run and its start on a line of its own; the datasets path's COCO
      sweep), images/s (supervised, MT, the train CLI's loop and its 2
-     iterations on the concatenation) and the training loaders' batches/s
-     beside the card's name and power limit.
+     iterations on the concatenation), the training loaders' batches/s and
+     the lift's arms' iterations/s beside the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -190,6 +206,8 @@ import time
 from unittest import mock
 
 import torch
+
+from mmt_psm_tpu_torch.utils.env import card_line
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32
 # (non-tensor-core) operations/s. Bounds are stated against these.
@@ -294,14 +312,6 @@ def kernel_ms(fn, kernels):
     if ms <= 0:
         raise AssertionError(f"none of {kernels} ran on the device: {sorted(times)}")
     return ms
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def random_boxes(gen, b, n, canvas, dev):
@@ -701,6 +711,16 @@ def flagship(dev, stats):
     return BATCHES * BATCH / wall
 
 
+# the weights of the f32 flagship comparison. CIAM's softmax over unnormalised
+# per-channel Gram energies is ill-conditioned at random weights: under
+# flax's truncated lecun_normal, seed 0's weights give one instance whose
+# mask probabilities move 5e-3 for the ~1e-6 relative float32 noise of K2
+# against its plain version (7.3e-5 with CIAM skipped, the kernels
+# deterministic); seed 2's give 210 detections and 5.0e-5 (an H100 80GB
+# HBM3, scripts/flagship_f32_seeds.py)
+F32_FLAGSHIP_SEED = 2
+
+
 def flagship_f32_vs_plain(dev):
     from mmt_psm_tpu_torch import build_model
     from mmt_psm_tpu_torch.ops import nms as N
@@ -708,7 +728,7 @@ def flagship_f32_vs_plain(dev):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = build_model(device=dev, seed=0, opts=["TPU.COMPUTE_DTYPE", "float32"])
+    model = build_model(device=dev, seed=F32_FLAGSHIP_SEED, opts=["TPU.COMPUTE_DTYPE", "float32"])
     gen = torch.Generator(device=dev).manual_seed(4)
     x = torch.randn(2, CANVAS, CANVAS, 3, generator=gen, device=dev) * 40.0
     sizes = torch.tensor([[CANVAS, CANVAS], [900, 1000]], dtype=torch.int32).to(dev)
@@ -1474,6 +1494,12 @@ VARIANT_LAUNCHES = {
     "prcnn": (_launches(2, 5), _launches(1, 5, 5)),
     "remat": (_launches(2, 2), _launches(1, 2, 2)),
 }
+# the weights of a variant's forwards where seed 0's compare nothing or are
+# ill-conditioned (under flax's truncated lecun_normal, on an H100 80GB
+# HBM3): C4's seed-0 weights score no detection; remat's are the flagship's,
+# whose CIAM turns the f32 kernels' float32 noise into 5e-3 of a mask
+# probability (F32_FLAGSHIP_SEED). Steps keep seed 0
+VARIANT_FORWARD_SEEDS = {"mask_rcnn_c4": 1, "remat": F32_FLAGSHIP_SEED}
 # variants whose forward goes through run_inference (the host filter of
 # set-NMS, the box-only paste of RPN_ONLY), besides the plain Mask R-CNN
 SERVED = ("mask_rcnn_fpn", "set_nms", "rpn_only")
@@ -1611,7 +1637,8 @@ def _variant_mt(trainer, dev):
 
 def variants_path(dev, stats, eval_ds):
     """Every variant at the flagship's width (1024 canvas, bf16, batch 4,
-    weights from seed 0): forwards, supervised steps and, for the plain Mask
+    weights from seed 0, the forwards' from ``VARIANT_FORWARD_SEEDS``):
+    forwards, supervised steps and, for the plain Mask
     R-CNN, serving and MT steps; each kernel call of one forward and one
     step held against its plain version and timed."""
     from mmt_psm_tpu_torch.data.synthetic import batch_to_torch, generate_batch
@@ -1627,7 +1654,7 @@ def variants_path(dev, stats, eval_ds):
     for name in VARIANTS:
         t_v = time.perf_counter()
         path, opts = VARIANTS[name]
-        model = model_from_cfg(variant_config(name), dev, seed=0)
+        model = model_from_cfg(variant_config(name), dev, seed=VARIANT_FORWARD_SEEDS.get(name, 0))
         calls, fwd_s, fwd_launches, d = _variant_forward(name, model, x, sizes)
         row = {"patches_per_s": BATCH / fwd_s, "valid_per_image": [int(v) for v in d.valid.sum(1)]}
         if name in SERVED:
@@ -1704,7 +1731,7 @@ def variants_f32_vs_plain(dev):
 
     for name, (path, opts) in VARIANTS.items():
         t_v = time.perf_counter()
-        model = model_from_cfg(variant_config(name, f32), dev, seed=0)
+        model = model_from_cfg(variant_config(name, f32), dev, seed=VARIANT_FORWARD_SEEDS.get(name, 0))
         got = model(x, sizes)
         with swapped(everything):
             want = model(x, sizes)
@@ -2426,6 +2453,121 @@ def data_parallel_path(dev, stats, opts=(), backend="gloo", devices=None, batch=
     return ranks
 
 
+# ------------------------------------------------------ the learning tools
+# the lift tool at the lift's 256-px windows: its sup and mt arms, 40
+# iterations each, MT from iteration 20, on 16 unlabeled patches; then the
+# convergence tool, 20 iterations
+LEARN_LIFT = ["--size", "256", "--iters", "40", "--start-mt", "20", "--arms", "sup,mt", "--unlabeled-patches", "16",
+              "--sharpen", "--hard-neg", "--tag", "smoke"]
+LEARN_CONVERGENCE_ITERS = 20
+LIFT_ARM_KEYS = {"AJI_cyto", "AJI_nuclei", "mAP_all", "AP50_all", "F1_nuclei"}
+LIFT_META_KEYS = {"seed", "size", "canvas", "iters", "start_mt", "lambda", "alpha", "fg_hint", "train_ratio",
+                  "labeled_windows", "unlabeled_patches", "total_seconds", "card"}
+CONVERGENCE_KEYS = {"iters", "train_seconds", "sec_per_iter", "AJI", "F1", "mAP_all", "AP50_all",
+                    "eval_images_per_sec", "card"}
+
+
+def call_shape(key, a):
+    """The shapes that tell one kernel call of a path from another."""
+    if key == "nms":
+        return key, tuple(a[0].shape)
+    if key == "roi_align":
+        return key, tuple(a[1].shape), a[3], tuple(tuple(f.shape) for f in a[0]), a[0][0].dtype
+    return key, tuple(a[0].shape), tuple(a[1].shape), a[4]
+
+
+class FirstOfEachShape:
+    """A call list for ``recording`` that keeps the first call of each shape
+    (``call_shape``) only: a path of thousands of calls holds a few of them."""
+
+    def __init__(self, calls):
+        self.calls, self.seen = calls, set()
+
+    def append(self, item):
+        shape = call_shape(*item)
+        if shape not in self.seen:
+            self.seen.add(shape)
+            self.calls.append(item)
+
+
+def _finite_tree(tree):
+    if isinstance(tree, dict):
+        return all(_finite_tree(v) for v in tree.values())
+    return isinstance(tree, (int, float)) and math.isfinite(tree)
+
+
+def learning_path(dev, stats):
+    """The learning tools on the card: ``tools/mt_lift_experiment.py``'s sup
+    and mt arms and ``tools/synthetic_convergence.py`` through their
+    ``main``, every kernel call's first of each shape recorded and held
+    against its plain version, the launches of each tool counted from 0."""
+    import os
+    import tempfile
+
+    from mmt_psm_tpu_torch.engine import trainer as T
+    from mmt_psm_tpu_torch.tools import mt_lift_experiment, synthetic_convergence
+
+    loops, calls = [], []
+    real_train = T.MTTrainer.train
+
+    def counters():
+        return {k: getattr(mod, attr) for k, (mod, attr, _) in kernel_wrappers().items()}
+
+    def train(self, start_iter=0):
+        before = {k: fn.launches for k, fn in counters().items()}
+        t = time.perf_counter()
+        out = real_train(self, start_iter)
+        torch.cuda.synchronize()
+        loops.append(dict(seconds=time.perf_counter() - t, iters=self.max_iter - start_iter,
+                          mt=self.unlabeled_loader is not None,
+                          launches={k: fn.launches - before[k] for k, fn in counters().items()}))
+        return out
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.object(T.MTTrainer, "train", train), \
+            mock.patch.object(tempfile, "tempdir", tmp), recording(FirstOfEachShape(calls)):
+        for name, run in (
+                ("lift", lambda: mt_lift_experiment.main(LEARN_LIFT + ["--out", os.path.join(tmp, "lift.json")])),
+                ("convergence", lambda: synthetic_convergence.main(
+                    ["--iters", str(LEARN_CONVERGENCE_ITERS), "--out", os.path.join(tmp, "conv.json")]))):
+            # each tool's launches: counts set to 0 just before it, read just after
+            for fn in counters().values():
+                fn.launches = 0
+            t = time.perf_counter()
+            result = run()
+            torch.cuda.synchronize()
+            runs[name] = dict(result=result, seconds=time.perf_counter() - t,
+                              launches={k: fn.launches for k, fn in counters().items()})
+    lift, conv = runs["lift"]["result"], runs["convergence"]["result"]
+    if set(lift) != {"sup_student", "mt_student", "mt_teacher", "meta"} or set(lift["meta"]) != LIFT_META_KEYS or \
+            any(set(lift[a]) != LIFT_ARM_KEYS or not _finite_tree(lift[a]) for a in lift if a != "meta"):
+        raise AssertionError(f"the lift tool's JSON: {json.dumps(lift)}")
+    if set(conv) != CONVERGENCE_KEYS or not _finite_tree({k: v for k, v in conv.items() if k != "card"}):
+        raise AssertionError(f"the convergence tool's JSON: {json.dumps(conv)}")
+    if [lp["mt"] for lp in loops] != [False, True] or any(lp["iters"] != 40 for lp in loops):
+        raise AssertionError(f"the lift's loops: {loops}")
+    for name, r in runs.items():
+        if not all(r["launches"].values()):
+            raise AssertionError(f"{name}: a kernel of the path never launched: {r['launches']}")
+    timed, per_call = time_calls(calls)
+    for k, (ms, plain_ms, b, err) in timed.items():
+        stats[k].update(launches_learning=sum(r["launches"][k] for r in runs.values()), ms_learning=ms,
+                        plain_ms_learning=plain_ms, bound_ms_learning=b["bound_ms"], bound_by_learning=b["bound_by"],
+                        max_abs_err_learning=err)
+    rates = {("mt" if lp["mt"] else "sup"): lp["iters"] / lp["seconds"] for lp in loops}
+    arm_loops = [dict(lp, seconds=round(lp["seconds"], 3)) for lp in loops]
+    print(f"learning bf16: the lift tool at 256 px ({' '.join(LEARN_LIFT)}) in {runs['lift']['seconds']:.3f} s, "
+          f"launches {runs['lift']['launches']}; its loops {json.dumps(arm_loops)}; "
+          f"synthetic_convergence --iters {LEARN_CONVERGENCE_ITERS} in {runs['convergence']['seconds']:.3f} s, "
+          f"launches {runs['convergence']['launches']}", flush=True)
+    print(f"learning iterations/s (batch 4 at 256 px, the loop over the tool's loaders): sup arm {rates['sup']:.3f}, "
+          f"mt arm (20 supervised + 20 MT) {rates['mt']:.3f}; convergence {1 / conv['sec_per_iter']:.3f}", flush=True)
+    print("learning results: " + json.dumps({"lift": lift, "convergence": conv}), flush=True)
+    print("learning path's kernel calls, the first of each shape, each held against its plain version (kernel, "
+          "shape, kernel ms, plain ms, max abs err, bound ms): " + json.dumps(per_call), flush=True)
+    return rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2453,6 +2595,7 @@ def main() -> int:
     phase("variants f32 vs plain", lambda: variants_f32_vs_plain(dev))
     coco_timing, datasets_train_rate, _ = phase("datasets bf16", lambda: datasets_path(dev, stats, eval_ds))
     dp_ranks = phase("data parallel", lambda: data_parallel_path(dev, stats))
+    learning_rates = phase("learning bf16", lambda: learning_path(dev, stats))
     print(f"throughput: {patches_per_s:.3f} patches/s at {CANVAS}px, batch {BATCH}, bf16 on {card}", flush=True)
     print(f"eval throughput: {eval_timing['images_per_sec']} evaluated patches/s at {CANVAS}px, batch {BATCH}, bf16, "
           f"host paste and Papeval included, scored serially; stage_seconds "
@@ -2480,6 +2623,8 @@ def main() -> int:
           f"images a rank and step: supervised {rate('sup')} labeled images/s a rank, MT {rate('mt')}; "
           f"gradient all-reduce {[round(b['allreduce']['ms'], 3) for b in dp]} ms for {dp[0]['allreduce']['elements']} "
           f"f32 elements, at {CANVAS}px, bf16 on {card}", flush=True)
+    print(f"learning throughput: {json.dumps({k: round(v, 3) for k, v in learning_rates.items()})} iterations/s of "
+          f"the lift tool's arms at 256 px, batch 4, bf16 on {card}", flush=True)
     print(json.dumps({"kernels": [stats["nms"], stats["roi_align"], stats["roi_align_backward"]]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,7 +50,7 @@ class ResNet50Conv5ROIExtractor(nn.Module):
         # flax's default conv init (lecun normal), as the backbone's body
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
-                variance_scaling_(m.weight, 1.0, "fan_in", "normal", gen)
+                variance_scaling_(m.weight, 1.0, "fan_in", "truncated_normal", gen)
 
     def forward(self, pooled):
         x = pooled.float().permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)

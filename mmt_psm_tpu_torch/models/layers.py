@@ -55,8 +55,10 @@ class FrozenBatchNorm2d(nn.Module):
 
 
 def variance_scaling_(w: torch.Tensor, scale: float, mode: str, distribution: str, gen: torch.Generator):
-    """Seeded init with the variance of flax's ``variance_scaling`` (the
-    normal is not truncated). ``w`` is a torch weight [out, in, *k] (or
+    """Seeded init with flax's ``variance_scaling``: "uniform", "normal" or
+    "truncated_normal" (flax's default conv and dense init, ``lecun_normal``,
+    is the last at scale 1 fan_in: a normal cut at 2 standard deviations and
+    rescaled to the variance). ``w`` is a torch weight [out, in, *k] (or
     [in, out, *k] for a transposed conv, where the two fans swap roles
     as in flax)."""
     receptive = w[0, 0].numel() if w.dim() > 2 else 1
@@ -66,6 +68,10 @@ def variance_scaling_(w: torch.Tensor, scale: float, mode: str, distribution: st
         if distribution == "uniform":
             limit = (3.0 * var) ** 0.5
             return w.uniform_(-limit, limit, generator=gen)
+        if distribution == "truncated_normal":
+            # the std of a unit normal cut to [-2, 2] (jax.nn.initializers)
+            std = var ** 0.5 / 0.87962566103423978
+            return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
         return w.normal_(0.0, var ** 0.5, generator=gen)
 
 

@@ -158,7 +158,7 @@ class RelationNMS(nn.Module):
     def init_weights(self, gen: torch.Generator):
         for m in self.modules():
             if isinstance(m, (Linear, Conv2d)):
-                variance_scaling_(m.weight, 1.0, "fan_in", "normal", gen)  # flax lecun_normal
+                variance_scaling_(m.weight, 1.0, "fan_in", "truncated_normal", gen)  # flax lecun_normal
                 nn.init.zeros_(m.bias)
 
     def forward(self, appearance, probs, box_regression, prop_boxes, prop_valid, image_sizes):

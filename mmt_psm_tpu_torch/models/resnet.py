@@ -110,7 +110,7 @@ class ResNet(nn.Module):
                 if name == "stem.conv1":
                     variance_scaling_(m.weight, 2.0, "fan_out", "normal", gen)
                 else:
-                    variance_scaling_(m.weight, 1.0, "fan_in", "normal", gen)
+                    variance_scaling_(m.weight, 1.0, "fan_in", "truncated_normal", gen)
 
     def forward(self, x):
         x = self.stem(x)

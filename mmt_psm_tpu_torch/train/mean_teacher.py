@@ -62,6 +62,16 @@ class MTTrainer(Trainer):
         return {**sup, **mt}
 
 
+def teacher_of(model):
+    """The EMA teacher's starting point: a copy of ``model`` in eval mode
+    with no tensor taking a gradient (the JAX ``create_train_state(...,
+    with_teacher=True)``)."""
+    teacher = copy.deepcopy(model).eval()
+    for t in list(teacher.parameters()) + list(teacher.buffers()):
+        t.requires_grad_(False)
+    return teacher
+
+
 def build_mt_trainer(config_path: str = FLAGSHIP_CONFIG, device=None, seed: int = 0, opts=()) -> MTTrainer:
     """A mean-teacher trainer for the model of a YAML config (plus yacs
     ``KEY VALUE`` overrides in ``opts``): the student's weights made from
@@ -70,7 +80,4 @@ def build_mt_trainer(config_path: str = FLAGSHIP_CONFIG, device=None, seed: int 
     dev = resolve_device(device)
     cfg = load_config(config_path, opts)
     model = model_from_cfg(cfg, dev, seed, train=True)
-    teacher = copy.deepcopy(model).eval()
-    for t in list(teacher.parameters()) + list(teacher.buffers()):
-        t.requires_grad_(False)
-    return MTTrainer(model, teacher, cfg, torch.Generator(device=dev).manual_seed(seed))
+    return MTTrainer(model, teacher_of(model), cfg, torch.Generator(device=dev).manual_seed(seed))

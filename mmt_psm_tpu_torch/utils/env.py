@@ -10,7 +10,18 @@ it has no counterpart.
 from __future__ import annotations
 
 import platform
+import subprocess
 import sys
+
+
+def card_line() -> str:
+    """The first card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` gives them: a card may be set
+    below its maximum power and then runs slower under load, so every number
+    measured on it is kept beside this line."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 def collect_env_info() -> str:

@@ -25,11 +25,15 @@ from mmt_psm_tpu_torch.models.variants import VARIANTS
 U.setup_torch()
 
 MASK_REL = [n for n in VARIANTS if n.startswith("mask_rel_")]
+# the weights of the forward comparison: under flax's truncated lecun_normal
+# the seed-0 weights of the MASK_FEATURE and SAME_PREDICTOR variants score no
+# detection above the threshold in either package, which compares nothing
+FORWARD_SEED = 1
 
 
 @pytest.mark.parametrize("name", MASK_REL)
 def test_forward_test_matches_jax(name):
-    jm, params, tm, _ = V.variant_pair(name)
+    jm, params, tm, _ = V.variant_pair(name, seed=FORWARD_SEED)
     c = tm.config
     assert c.with_relation_mask and c.relation_mask.type == "CAM" and c.with_relation_nms
     got = V.port_forward_test(tm)

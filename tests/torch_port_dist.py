@@ -345,6 +345,24 @@ def steps_rank(rank: int, world: int, jobs: dict, checks: dict, keep: tuple = ()
     return out
 
 
+def moves_rank(rank: int, world: int, job: dict) -> dict:
+    """One job at W = ``world`` and, on rank 0, at W = 1 on the global batch
+    (``world_one``): whether the ranks' updated students are bit-identical;
+    on rank 0 also both runs' losses and, per tensor of the student, the
+    norm of the W = ``world`` step's move from the W = 1 step and the W = 1
+    tensor's norm."""
+    if rank == 0:
+        with world_one():
+            ref = run_job(dict(job, local=None))
+    got = run_job(job)
+    out = {"identical": ranks_identical(got["params"])}
+    if rank == 0:
+        out.update(losses=got["losses"], ref_losses=ref["losses"],
+                   moves={k: (float((got["params"][k].double() - w.double()).norm()), float(w.double().norm()))
+                          for k, w in ref["params"].items()})
+    return out
+
+
 def comm_rank(rank: int, world: int) -> dict:
     """``parallel/comm.py`` and ``parallel/mesh.py`` at W = ``world``: each
     helper's result on this rank (the test holds them to the

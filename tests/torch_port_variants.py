@@ -103,11 +103,17 @@ def to_jax_flat(model, pooled_chw) -> dict:
 
 def variant_pair(name: str, seed: int = 0, train: bool = False, **extra):
     """-> (jax model, jax params, port model, flat params) of one set of
-    weights: the port's seeded initialisation (the JAX initialisers'
-    scales) with the FrozenBN statistics randomised, its tensors exported in
-    the JAX layout and checked against the JAX model's parameter tree
-    (``jax.eval_shape`` of its init: nothing compiles)."""
-    jc, tc = variant_configs(name, train=train, **extra)
+    weights of variant ``name`` (``pair_of``)."""
+    return pair_of(*variant_configs(name, train=train, **extra), seed=seed)
+
+
+def pair_of(jc, tc, seed: int = 0):
+    """-> (jax model, jax params, port model, flat params) of the graphs of
+    ``jc`` and ``tc``, one set of weights: the port's seeded initialisation
+    (the JAX initialisers' scales) with the FrozenBN statistics randomised,
+    its tensors exported in the JAX layout and checked against the JAX
+    model's parameter tree (``jax.eval_shape`` of its init: nothing
+    compiles)."""
     jmodel = JaxMaskRCNN(config=jc)
     tmodel = MaskRCNN(tc).init_weights(torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed + 1)
@@ -128,11 +134,12 @@ def variant_pair(name: str, seed: int = 0, train: bool = False, **extra):
             tmodel.relation_nms.relation_module.WG.bias.fill_(WG_BIAS)
     pooled_chw = (tc.backbone_out_channels, tc.box_pooler_resolution, tc.box_pooler_resolution)
     flat = to_jax_flat(tmodel, pooled_chw)
+    size = jc.image_size
     if jc.with_hint_adaptor:  # the MGD adaptor is reached by init_all only, a training forward
-        b = U.train_batch()
+        b = U.train_batch(size=size)
         args, kw = (jnp.asarray(b["image"]), jnp.asarray(b["image_size"]), U.jax_gt(b)), {"method": "init_all"}
     else:
-        args, kw = tuple(jnp.asarray(a) for a in U.inputs()), {"train": False}
+        args, kw = tuple(jnp.asarray(a) for a in U.inputs(size=size)), {"train": False}
     shapes = jax.eval_shape(lambda: jmodel.init({"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1),
                                                   "dropout": jax.random.PRNGKey(2)}, *args, **kw))
     want = {"/".join(str(getattr(k, "key", k)) for k in path[:-1]) + "." + str(path[-1].key): tuple(v.shape)
