@@ -45,9 +45,7 @@ from mmt_psm_tpu_torch.utils.jax_params import flax_key, load_jax_params
 U.setup_torch()
 
 SIZE = 64
-STEP_SMALL = dict(pre_nms_top_n_train=64, post_nms_top_n_train=64, fpn_post_nms_top_n_train=64,
-                  box_batch_per_image=32, mask_max_pos=8, pre_nms_top_n_test=64, post_nms_top_n_test=64,
-                  fpn_post_nms_top_n_test=64, detections_per_img=16)
+STEP_SMALL = PL.STEP_SMALL
 ARGS = L.parse_args(["--sharpen", "--hard-neg", "--device", "cpu"])
 PLATEAU = ARGS.start_mt + max(ARGS.iters // 6, 50)
 ARMS = ("sup", "mt", "odkd", "psm", "mgd")

@@ -24,6 +24,10 @@ from mmt_psm_tpu.models import ModelConfig as JaxModelConfig
 from mmt_psm_tpu_torch.tools import mt_lift_experiment as L
 
 SCRIPTS = os.path.join(U.REPO, "scripts")
+# the lift's counts cut for a step at a 64 canvas on the CPU
+STEP_SMALL = dict(pre_nms_top_n_train=64, post_nms_top_n_train=64, fpn_post_nms_top_n_train=64,
+                  box_batch_per_image=32, mask_max_pos=8, pre_nms_top_n_test=64, post_nms_top_n_test=64,
+                  fpn_post_nms_top_n_test=64, detections_per_img=16)
 # every config key the JAX script's make_cfg sets (scripts/mt_lift_experiment.py:194-230)
 ARM_KEYS = {"SOLVER": ("BASE_LR", "MAX_ITER", "STEPS", "WARMUP_ITERS", "IMS_PER_BATCH", "CHECKPOINT_PERIOD"),
             "MT": ("LAMBDA", "FG_HINT", "CLS_LOSS", "SHARPEN", "HARD_NEG", "ALPHA", "START_MT", "RAMPUP_STEP",
