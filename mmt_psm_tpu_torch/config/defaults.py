@@ -211,7 +211,10 @@ def get_cfg() -> ConfigNode:
     # runs on one device (engine/trainer.py)
     C.TPU.MESH_SHAPE = (-1,)
     # a torch.profiler trace of iterations [PROFILE_START, PROFILE_START +
-    # PROFILE_STEPS) is written into PROFILE_DIR; empty: off
+    # PROFILE_STEPS) is written into PROFILE_DIR; empty: off. Its spans name
+    # the loop's host work (loop_feed, loop_read_losses, loop_checkpoint) and
+    # the step's (train_step, loss_sum, grad_reset, backward, optimizer_step
+    # and its phases, the model's stages, k1_nms, k2_roi_align, k3_roi_align_bwd)
     C.TPU.PROFILE_DIR = ""
     C.TPU.PROFILE_START = 5
     C.TPU.PROFILE_STEPS = 3

@@ -43,6 +43,7 @@ from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..data.loader import prefetch, usable_cpus
 from ..data.transforms import PIXEL_MEAN_BGR
@@ -121,38 +122,44 @@ class DeviceStage:
         inside = (ys < sizes[:, 0, None, None]) & (xs < sizes[:, 1, None, None])
         return torch.where(inside[..., None], x, torch.zeros((), device=images.device))
 
-    def _outputs(self, images, sizes):
-        d = self.model(self.normalize(images, sizes), sizes)
-        # the host pastes float16-rounded probabilities, as the JAX engine does
-        return {"boxes": d.boxes, "scores": d.scores, "labels": d.labels, "valid": d.valid,
-                "masks": None if d.masks is None else d.masks.to(torch.float16), "head_ids": d.head_ids}
+    def _forward(self, images, sizes):
+        with record_function("device_stage_normalize"):
+            images = self.normalize(images, sizes)
+        return self.model(images, sizes)
 
     def dispatch(self, batch):
-        images = torch.from_numpy(np.ascontiguousarray(batch["image"]))
-        sizes = torch.from_numpy(np.ascontiguousarray(batch["image_size"], np.int32))
         if not self.cuda:
-            return {k: None if t is None else t.numpy() for k, t in self._outputs(images, sizes).items()}
+            d = self._forward(*_host_tensors(batch))
+            return {k: None if t is None else t.numpy() for k, t in _outputs(d).items()}
         slot = self._slots[self._turn]
         self._turn = (self._turn + 1) % self.SLOTS
-        if "copied" in slot and not slot["copied"].query():
-            slot["copied"].synchronize()
-        staged = []
-        for key, src in (("image", images), ("sizes", sizes)):
-            buf = slot.get(key)
-            if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
-                buf = slot[key] = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-            buf.copy_(src)
-            staged.append(buf.to(self.device, non_blocking=True))
-        slot["copied"] = torch.cuda.Event()
-        slot["copied"].record()
-        outs = {k: t for k, t in self._outputs(*staged).items() if t is not None}
-        host = slot.get("out")
-        if host is None or {k: h.shape for k, h in host.items()} != {k: o.shape for k, o in outs.items()}:
-            host = slot["out"] = {k: torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for k, o in outs.items()}
-        for k, o in outs.items():
-            host[k].copy_(o, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        # the record_function labels name the phases in a torch.profiler trace
+        # (perfbench's host_ms and wait_ms metrics read them)
+        with record_function("device_stage_slot_wait"):
+            if "copied" in slot and not slot["copied"].query():
+                slot["copied"].synchronize()
+        with record_function("device_stage_staging"):
+            pinned = []
+            for key, src in zip(("image", "sizes"), _host_tensors(batch)):
+                buf = slot.get(key)
+                if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
+                    buf = slot[key] = _pinned_empty(src.shape, src.dtype)
+                buf.copy_(src)
+                pinned.append(buf)
+        with record_function("device_stage_upload"):
+            staged = [buf.to(self.device, non_blocking=True) for buf in pinned]
+            slot["copied"] = torch.cuda.Event()
+            slot["copied"].record()
+        d = self._forward(*staged)
+        with record_function("device_stage_copy_out"):
+            outs = {k: t for k, t in _outputs(d).items() if t is not None}
+            host = slot.get("out")
+            if host is None or {k: h.shape for k, h in host.items()} != {k: o.shape for k, o in outs.items()}:
+                host = slot["out"] = {k: _pinned_empty(o.shape, o.dtype) for k, o in outs.items()}
+            for k, o in outs.items():
+                host[k].copy_(o, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
         return done, host
 
     def fetch(self, pending):
@@ -160,9 +167,27 @@ class DeviceStage:
             outs = pending
         else:
             done, host = pending
-            done.synchronize()
-            outs = {k: h.numpy().copy() for k, h in host.items()}
+            with record_function("device_stage_fetch_wait"):
+                done.synchronize()
+            with record_function("device_stage_fetch_copy"):
+                outs = {k: h.numpy().copy() for k, h in host.items()}
         return tuple(outs.get(k) for k in ("boxes", "scores", "labels", "valid", "masks", "head_ids"))
+
+
+def _host_tensors(batch):
+    """The batch's canvases and sizes as host tensors, no copy where they are contiguous."""
+    return (torch.from_numpy(np.ascontiguousarray(batch["image"])),
+            torch.from_numpy(np.ascontiguousarray(batch["image_size"], np.int32)))
+
+
+def _pinned_empty(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+def _outputs(d) -> dict:
+    # the host pastes float16-rounded probabilities, as the JAX engine does
+    return {"boxes": d.boxes, "scores": d.scores, "labels": d.labels, "valid": d.valid,
+            "masks": None if d.masks is None else d.masks.to(torch.float16), "head_ids": d.head_ids}
 
 
 def _start_pool(workers: int):

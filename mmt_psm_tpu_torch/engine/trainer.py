@@ -25,7 +25,9 @@ the step generator), over two batch iterators:
   which leaves the tag alone;
 * ``resume()`` restores the tagged checkpoint in place;
 * TPU.PROFILE_DIR: a ``torch.profiler`` trace of iterations
-  [PROFILE_START, PROFILE_START + PROFILE_STEPS) written there.
+  [PROFILE_START, PROFILE_START + PROFILE_STEPS) written there; the
+  loop's own host work is labelled ``loop_feed``, ``loop_read_losses`` and
+  ``loop_checkpoint``, the step's in ``train/``.
 
 Data parallelism: in a process group of W ranks (``parallel/comm.py::
 init_distributed``) the mesh spans the world (``parallel/mesh.py::
@@ -49,6 +51,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..data.loader import prefetch
 from ..parallel import comm
@@ -143,18 +146,21 @@ class MTTrainer:
             if profiler is not None and iteration >= prof_stop:
                 self._stop_profiler(profiler, prof_dir, prof_start, iteration)
                 profiler = None
-            batch = self._to_device(batch)
-            if self._use_mt(iteration):
-                losses = self._mt_step(batch, self._to_device(next(self.unlabeled_loader)))
-            else:
-                losses = self._sup_step(batch)
-            # one copy to the host, not one per scalar; the losses summed over
-            # the ranks first (the gradient norm is already the global one)
-            losses = comm.global_losses(losses, REPLICATED)
-            read = [v.float() for v in losses.values()]
-            if self.steps.grad_norm is not None:
-                read.append(self.steps.grad_norm.float())
-            values = torch.stack(read).cpu().tolist()
+            # the record_function labels name the loop's host work between
+            # steps in a TPU.PROFILE_DIR trace
+            use_mt = self._use_mt(iteration)
+            with record_function("loop_feed"):
+                batch = self._to_device(batch)
+                unlabeled = self._to_device(next(self.unlabeled_loader)) if use_mt else None
+            losses = self._mt_step(batch, unlabeled) if use_mt else self._sup_step(batch)
+            with record_function("loop_read_losses"):
+                # one copy to the host, not one per scalar; the losses summed
+                # over the ranks first (the gradient norm is already the global one)
+                losses = comm.global_losses(losses, REPLICATED)
+                read = [v.float() for v in losses.values()]
+                if self.steps.grad_norm is not None:
+                    read.append(self.steps.grad_norm.float())
+                values = torch.stack(read).cpu().tolist()
             named = dict(zip([*losses, "grad_norm"], values))
             if not all(math.isfinite(v) for v in values):
                 raise FloatingPointError(f"iteration {iteration}: the run diverged: "
@@ -168,7 +174,8 @@ class MTTrainer:
                 self.logger.info(f"iter: {iteration}  eta: {eta:.0f}s  {self.meters}  "
                                  f"lr: {self.cfg.SOLVER.BASE_LR * self.lr_factor(iteration):.6f}")
             if self.checkpoint_period and iteration > 0 and iteration % self.checkpoint_period == 0:
-                self.save(iteration)
+                with record_function("loop_checkpoint"):
+                    self.save(iteration)
         if profiler is not None:
             self._stop_profiler(profiler, prof_dir, prof_start, prof_stop)
         self.save(self.max_iter, final=True)

@@ -345,11 +345,13 @@ class MaskRCNN(nn.Module):
                 losses["nms_loss"] = relation_nms_loss(out, gt.boxes, gt.labels, gt.valid, c.relation)
         if c.mask_on:
             with record_function("mask_head"):
-                m_boxes, m_labels, m_gt_idx, m_valid = select_positive_rois(rois, c.mask_max_pos)
+                with record_function("mask_head_targets"):
+                    m_boxes, m_labels, m_gt_idx, m_valid = select_positive_rois(rois, c.mask_max_pos)
                 mask_logits, mask_feats = self.mask_forward(features, m_boxes, images)
-                scale = gt.masks.shape[-1] / c.image_size
-                # the targets' resolution is the predictor's (25 for PRCNN)
-                targets = crop_masks_to_boxes(gt.masks, m_gt_idx, m_boxes * scale, mask_logits.shape[2])
+                with record_function("mask_head_targets"):
+                    scale = gt.masks.shape[-1] / c.image_size
+                    # the targets' resolution is the predictor's (25 for PRCNN)
+                    targets = crop_masks_to_boxes(gt.masks, m_gt_idx, m_boxes * scale, mask_logits.shape[2])
                 loss_mask = mask_head_loss(mask_logits, targets, m_labels, m_valid)
             if c.with_relation_mask:
                 with record_function("mask_relation_ciam"):

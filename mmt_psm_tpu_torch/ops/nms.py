@@ -11,6 +11,7 @@ are never kept and never suppress.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from ..structures.boxes import box_iou
 from . import kernels
@@ -45,30 +46,32 @@ def kernel_scratch(p: int, n: int, device) -> torch.Tensor:
 
 def suppress_cuda(boxes_s: torch.Tensor, valid_s: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     """Kernel K1: the same flags as ``suppress_plain``, on the card."""
-    if boxes_s.dim() != 3 or boxes_s.shape[-1] != 4 or boxes_s.dtype != torch.float32:
-        raise ValueError(f"boxes must be f32 [P, N, 4], got {boxes_s.dtype} {tuple(boxes_s.shape)}")
-    p, n = boxes_s.shape[:2]
-    if valid_s.shape != (p, n) or valid_s.dtype != torch.bool:
-        raise ValueError(f"valid must be bool [{p}, {n}], got {valid_s.dtype} {tuple(valid_s.shape)}")
-    if thr.shape != (p,) or thr.dtype != torch.float32:
-        raise ValueError(f"thresholds must be f32 [{p}], got {thr.dtype} {tuple(thr.shape)}")
-    dev = boxes_s.device
-    if not (valid_s.device == dev == thr.device):
-        raise ValueError("boxes, valid and thresholds must be on one device")
-    if n > MAX_KERNEL_BOXES:
-        raise ValueError(f"K1 takes at most {MAX_KERNEL_BOXES} boxes a problem, got {n}")
-    boxes_s, valid_s, thr = boxes_s.contiguous(), valid_s.contiguous(), thr.contiguous()
-    lib = kernels.library("nms")
-    scratch = kernel_scratch(p, n, dev)
-    supp = torch.empty((p, n), dtype=torch.bool, device=dev)  # the kernel writes 0 or 1
-    with torch.cuda.device(dev):
-        err = lib.nms_suppress(
-            boxes_s.data_ptr(), valid_s.data_ptr(), thr.data_ptr(), scratch.data_ptr(),
-            supp.data_ptr(), p, n, kernels.stream_handle(dev),
-        )
-    kernels.check(err, "nms_suppress")
-    suppress_cuda.launches += 1
-    return supp
+    # the whole wrapper, checks to launch, as one span of the trace (perfbench's host_ms)
+    with record_function("k1_nms"):
+        if boxes_s.dim() != 3 or boxes_s.shape[-1] != 4 or boxes_s.dtype != torch.float32:
+            raise ValueError(f"boxes must be f32 [P, N, 4], got {boxes_s.dtype} {tuple(boxes_s.shape)}")
+        p, n = boxes_s.shape[:2]
+        if valid_s.shape != (p, n) or valid_s.dtype != torch.bool:
+            raise ValueError(f"valid must be bool [{p}, {n}], got {valid_s.dtype} {tuple(valid_s.shape)}")
+        if thr.shape != (p,) or thr.dtype != torch.float32:
+            raise ValueError(f"thresholds must be f32 [{p}], got {thr.dtype} {tuple(thr.shape)}")
+        dev = boxes_s.device
+        if not (valid_s.device == dev == thr.device):
+            raise ValueError("boxes, valid and thresholds must be on one device")
+        if n > MAX_KERNEL_BOXES:
+            raise ValueError(f"K1 takes at most {MAX_KERNEL_BOXES} boxes a problem, got {n}")
+        boxes_s, valid_s, thr = boxes_s.contiguous(), valid_s.contiguous(), thr.contiguous()
+        lib = kernels.library("nms")
+        scratch = kernel_scratch(p, n, dev)
+        supp = torch.empty((p, n), dtype=torch.bool, device=dev)  # the kernel writes 0 or 1
+        with torch.cuda.device(dev):
+            err = lib.nms_suppress(
+                boxes_s.data_ptr(), valid_s.data_ptr(), thr.data_ptr(), scratch.data_ptr(),
+                supp.data_ptr(), p, n, kernels.stream_handle(dev),
+            )
+        kernels.check(err, "nms_suppress")
+        suppress_cuda.launches += 1
+        return supp
 
 
 suppress_cuda.launches = 0

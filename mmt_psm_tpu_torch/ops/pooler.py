@@ -27,6 +27,7 @@ import ctypes
 import math
 
 import torch
+from torch.profiler import record_function
 
 from ..structures.boxes import box_area
 from . import kernels
@@ -128,39 +129,41 @@ def _check_vector_loads(c: int, tensors, what: str):
 
 def multilevel_roi_align_cuda(features, boxes, scales, output_size: int, sampling_ratio: int):
     """Kernel K2: one launch pools every RoI of the batch on its level."""
-    if len(features) != len(scales) or not 1 <= len(features) <= 4:
-        raise ValueError(f"need 1-4 levels with one scale each, got {len(features)} and {len(scales)}")
-    dtype = features[0].dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"features must be float32 or bfloat16, got {dtype}")
-    b, n = boxes.shape[:2]
-    c = features[0].shape[-1]
-    dev = boxes.device
-    for f in features:
-        if f.dim() != 4 or f.shape[0] != b or f.shape[-1] != c or f.dtype != dtype or f.device != dev:
-            raise ValueError(f"each level must be [B={b}, H, W, C={c}] {dtype} on {dev}, got {f.dtype} {tuple(f.shape)}")
-    if boxes.dim() != 3 or boxes.shape[-1] != 4:
-        raise ValueError(f"boxes must be [B, N, 4], got {tuple(boxes.shape)}")
-    feats = [f.contiguous() for f in features]
-    _check_vector_loads(c, feats, "multilevel_roi_align")
-    boxes = boxes.to(torch.float32).contiguous()
-    levels = _levels(boxes, scales).contiguous()
-    out = torch.empty((b, n, output_size, output_size, c), dtype=dtype, device=dev)
-    num = len(feats)
-    lib = kernels.library("roi_align")
-    with torch.cuda.device(dev):
-        err = lib.roi_align_forward(
-            (ctypes.c_void_p * num)(*[f.data_ptr() for f in feats]),
-            (ctypes.c_int * num)(*[f.shape[1] for f in feats]),
-            (ctypes.c_int * num)(*[f.shape[2] for f in feats]),
-            (ctypes.c_float * num)(*scales),
-            num, boxes.data_ptr(), levels.data_ptr(), out.data_ptr(),
-            b * n, n, c, output_size, sampling_ratio,
-            0 if dtype == torch.float32 else 1, kernels.stream_handle(dev),
-        )
-    kernels.check(err, "roi_align_forward")
-    multilevel_roi_align_cuda.launches += 1
-    return out
+    with record_function("k2_roi_align"):
+        if len(features) != len(scales) or not 1 <= len(features) <= 4:
+            raise ValueError(f"need 1-4 levels with one scale each, got {len(features)} and {len(scales)}")
+        dtype = features[0].dtype
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"features must be float32 or bfloat16, got {dtype}")
+        b, n = boxes.shape[:2]
+        c = features[0].shape[-1]
+        dev = boxes.device
+        for f in features:
+            if f.dim() != 4 or f.shape[0] != b or f.shape[-1] != c or f.dtype != dtype or f.device != dev:
+                raise ValueError(f"each level must be [B={b}, H, W, C={c}] {dtype} on {dev}, "
+                                 f"got {f.dtype} {tuple(f.shape)}")
+        if boxes.dim() != 3 or boxes.shape[-1] != 4:
+            raise ValueError(f"boxes must be [B, N, 4], got {tuple(boxes.shape)}")
+        feats = [f.contiguous() for f in features]
+        _check_vector_loads(c, feats, "multilevel_roi_align")
+        boxes = boxes.to(torch.float32).contiguous()
+        levels = _levels(boxes, scales).contiguous()
+        out = torch.empty((b, n, output_size, output_size, c), dtype=dtype, device=dev)
+        num = len(feats)
+        lib = kernels.library("roi_align")
+        with torch.cuda.device(dev):
+            err = lib.roi_align_forward(
+                (ctypes.c_void_p * num)(*[f.data_ptr() for f in feats]),
+                (ctypes.c_int * num)(*[f.shape[1] for f in feats]),
+                (ctypes.c_int * num)(*[f.shape[2] for f in feats]),
+                (ctypes.c_float * num)(*scales),
+                num, boxes.data_ptr(), levels.data_ptr(), out.data_ptr(),
+                b * n, n, c, output_size, sampling_ratio,
+                0 if dtype == torch.float32 else 1, kernels.stream_handle(dev),
+            )
+        kernels.check(err, "roi_align_forward")
+        multilevel_roi_align_cuda.launches += 1
+        return out
 
 
 multilevel_roi_align_cuda.launches = 0
@@ -222,48 +225,50 @@ def multilevel_roi_align_backward_plain(grad, boxes, shapes, scales, output_size
 def multilevel_roi_align_backward_cuda(grad, boxes, shapes, scales, output_size: int, sampling_ratio: int):
     """Kernel K3: one launch writes every level's gradient map, each cell
     once, from the cotangents of the RoIs whose samples reach it."""
-    if len(shapes) != len(scales) or not 1 <= len(shapes) <= 4:
-        raise ValueError(f"need 1-4 levels with one scale each, got {len(shapes)} and {len(scales)}")
-    dtype = grad.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"the cotangent must be float32 or bfloat16, got {dtype}")
-    b, n = boxes.shape[:2]
-    c = shapes[0][-1]
-    if boxes.dim() != 3 or boxes.shape[-1] != 4:
-        raise ValueError(f"boxes must be [B, N, 4], got {tuple(boxes.shape)}")
-    if grad.shape != (b, n, output_size, output_size, c):
-        raise ValueError(f"the cotangent must be [{b}, {n}, {output_size}, {output_size}, {c}], got {tuple(grad.shape)}")
-    for s in shapes:
-        if len(s) != 4 or s[0] != b or s[-1] != c:
-            raise ValueError(f"each level must be [B={b}, H, W, C={c}], got {tuple(s)}")
-    dev = boxes.device
-    if grad.device != dev:
-        raise ValueError("the cotangent and the boxes must be on one device")
-    grad = grad.contiguous()
-    _check_vector_loads(c, [grad], "multilevel_roi_align backward")
-    boxes = boxes.to(torch.float32).contiguous()
-    levels = _levels(boxes, scales).contiguous()
-    sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
-    out = torch.empty(sum(sizes), dtype=dtype, device=dev)
-    footprints = torch.empty((b * n, 4), dtype=torch.int32, device=dev)
-    offsets = [0]
-    for size in sizes[:-1]:
-        offsets.append(offsets[-1] + size)
-    num = len(shapes)
-    lib = kernels.library("roi_align")
-    with torch.cuda.device(dev):
-        err = lib.roi_align_backward(
-            (ctypes.c_int * num)(*[s[1] for s in shapes]),
-            (ctypes.c_int * num)(*[s[2] for s in shapes]),
-            (ctypes.c_float * num)(*scales),
-            (ctypes.c_longlong * num)(*offsets),
-            num, boxes.data_ptr(), levels.data_ptr(), grad.data_ptr(), footprints.data_ptr(),
-            out.data_ptr(), b, n, c, output_size, sampling_ratio,
-            0 if dtype == torch.float32 else 1, kernels.stream_handle(dev),
-        )
-    kernels.check(err, "roi_align_backward")
-    multilevel_roi_align_backward_cuda.launches += 1
-    return [t.view(s) for t, s in zip(out.split(sizes), shapes)]
+    with record_function("k3_roi_align_bwd"):
+        if len(shapes) != len(scales) or not 1 <= len(shapes) <= 4:
+            raise ValueError(f"need 1-4 levels with one scale each, got {len(shapes)} and {len(scales)}")
+        dtype = grad.dtype
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"the cotangent must be float32 or bfloat16, got {dtype}")
+        b, n = boxes.shape[:2]
+        c = shapes[0][-1]
+        if boxes.dim() != 3 or boxes.shape[-1] != 4:
+            raise ValueError(f"boxes must be [B, N, 4], got {tuple(boxes.shape)}")
+        if grad.shape != (b, n, output_size, output_size, c):
+            raise ValueError(f"the cotangent must be [{b}, {n}, {output_size}, {output_size}, {c}], "
+                             f"got {tuple(grad.shape)}")
+        for s in shapes:
+            if len(s) != 4 or s[0] != b or s[-1] != c:
+                raise ValueError(f"each level must be [B={b}, H, W, C={c}], got {tuple(s)}")
+        dev = boxes.device
+        if grad.device != dev:
+            raise ValueError("the cotangent and the boxes must be on one device")
+        grad = grad.contiguous()
+        _check_vector_loads(c, [grad], "multilevel_roi_align backward")
+        boxes = boxes.to(torch.float32).contiguous()
+        levels = _levels(boxes, scales).contiguous()
+        sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
+        out = torch.empty(sum(sizes), dtype=dtype, device=dev)
+        footprints = torch.empty((b * n, 4), dtype=torch.int32, device=dev)
+        offsets = [0]
+        for size in sizes[:-1]:
+            offsets.append(offsets[-1] + size)
+        num = len(shapes)
+        lib = kernels.library("roi_align")
+        with torch.cuda.device(dev):
+            err = lib.roi_align_backward(
+                (ctypes.c_int * num)(*[s[1] for s in shapes]),
+                (ctypes.c_int * num)(*[s[2] for s in shapes]),
+                (ctypes.c_float * num)(*scales),
+                (ctypes.c_longlong * num)(*offsets),
+                num, boxes.data_ptr(), levels.data_ptr(), grad.data_ptr(), footprints.data_ptr(),
+                out.data_ptr(), b, n, c, output_size, sampling_ratio,
+                0 if dtype == torch.float32 else 1, kernels.stream_handle(dev),
+            )
+        kernels.check(err, "roi_align_backward")
+        multilevel_roi_align_backward_cuda.launches += 1
+        return [t.view(s) for t, s in zip(out.split(sizes), shapes)]
 
 
 multilevel_roi_align_backward_cuda.launches = 0

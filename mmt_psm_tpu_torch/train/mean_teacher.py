@@ -37,18 +37,19 @@ class MTTrainer(Trainer):
         and, past START_MT, an unlabeled one (``unlabeled_to_torch``).
         Returns the unweighted losses, ``loss_total`` (their weighted sum)
         and, in a mean-teacher step, ``mt_weight``: tensors, detached."""
-        if not self.use_mt(unlabeled):
-            return super().step(labeled)
-        losses = self.mt_losses(labeled, unlabeled)
-        weighted = weight_sum_losses(losses, self.iteration, self.mt)
-        total = sum(weighted.values())
-        dev = total.device
-        # a fill, not a host->device copy: the weight is a host number
-        weight = torch.full((), float(mt_loss_weight(self.iteration, self.mt)), device=dev)
-        self.update(total)
-        out = {k: v.detach() for k, v in losses.items()}
-        out["loss_total"] = total.detach()
-        out["mt_weight"] = weight
+        with record_function("train_step"):
+            if not self.use_mt(unlabeled):
+                return super().step(labeled)
+            losses = self.mt_losses(labeled, unlabeled)
+            with record_function("loss_sum"):
+                weighted = weight_sum_losses(losses, self.iteration, self.mt)
+                total = sum(weighted.values())
+                # a fill, not a host->device copy: the weight is a host number
+                weight = torch.full((), float(mt_loss_weight(self.iteration, self.mt)), device=total.device)
+            self.update(total)
+            out = {k: v.detach() for k, v in losses.items()}
+            out["loss_total"] = total.detach()
+            out["mt_weight"] = weight
         return out
 
     def mt_losses(self, labeled, unlabeled) -> dict:

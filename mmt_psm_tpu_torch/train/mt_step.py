@@ -320,7 +320,7 @@ def unlabeled_losses(student, teacher, batch, gen: torch.Generator, mt: MTConfig
     n_views = 2 * mt.aug_k
 
     # ---- teacher (no gradient) -----------------------------------------
-    with torch.no_grad():
+    with torch.no_grad(), record_function("mt_teacher"):
         with record_function("mt_teacher_backbone"):
             # the 2K views, each aug view and its flip, as one [2K*B] batch;
             # the pseudo-labelling below reuses view 0's pyramid
@@ -365,39 +365,40 @@ def unlabeled_losses(student, teacher, batch, gen: torch.Generator, mt: MTConfig
                 t_logits = [logits_all[v * bsz:(v + 1) * bsz] for v in range(n_views)]
 
     # ---- student (gradient) ----------------------------------------------
-    n_s = s_images.shape[1]
-    with record_function("mt_student_backbone"):
-        s_view_imgs = [hflip_image(s_images[:, si]) if si % 2 == 1 else s_images[:, si] for si in range(n_s)]
-        s_feats_all = student.backbone_features(torch.cat(s_view_imgs))
-        s_feats = _views(s_feats_all, n_s, bsz)
-    s_embs, s_logits = [], []
-    if use_mgd:
-        with record_function("mt_hint_adaptor"):
-            s_embs = _views(student.hint_embeddings(s_feats_all), n_s, bsz)
+    with record_function("mt_student"):
+        n_s = s_images.shape[1]
+        with record_function("mt_student_backbone"):
+            s_view_imgs = [hflip_image(s_images[:, si]) if si % 2 == 1 else s_images[:, si] for si in range(n_s)]
+            s_feats_all = student.backbone_features(torch.cat(s_view_imgs))
+            s_feats = _views(s_feats_all, n_s, bsz)
+        s_embs, s_logits = [], []
+        if use_mgd:
+            with record_function("mt_hint_adaptor"):
+                s_embs = _views(student.hint_embeddings(s_feats_all), n_s, bsz)
 
-    losses = {}
-    if use_psm:
-        with record_function("mt_psm"):
-            s_boxes_all = torch.cat([flipped_boxes if si % 2 == 1 else rois_boxes for si in range(n_s)])
-            s_logits_all = student.box_predictions(s_feats_all, s_boxes_all, False, gen, views=n_s)[0]
-            s_logits = [s_logits_all[si * bsz:(si + 1) * bsz] for si in range(n_s)]
-            if mt.odkd:
-                # ODKD takes precedence over PSM (generalized_rcnn.py:193-196,
-                # box_head.py:104-110): single-view soft distillation
-                losses["mt_classifier"] = odkd_loss(s_logits[0], t_logits[0], rois.labels, rois.valid,
-                                                    mt.cls_balance_weight)
+        losses = {}
+        if use_psm:
+            with record_function("mt_psm"):
+                s_boxes_all = torch.cat([flipped_boxes if si % 2 == 1 else rois_boxes for si in range(n_s)])
+                s_logits_all = student.box_predictions(s_feats_all, s_boxes_all, False, gen, views=n_s)[0]
+                s_logits = [s_logits_all[si * bsz:(si + 1) * bsz] for si in range(n_s)]
+                if mt.odkd:
+                    # ODKD takes precedence over PSM (generalized_rcnn.py:193-196,
+                    # box_head.py:104-110): single-view soft distillation
+                    losses["mt_classifier"] = odkd_loss(s_logits[0], t_logits[0], rois.labels, rois.valid,
+                                                        mt.cls_balance_weight)
+                else:
+                    losses["mt_classifier"] = psm_loss(s_logits, t_logits, rois.labels, rois.valid, mt, c.num_classes)
+        if use_mgd:
+            with record_function("mt_mgd"):
+                losses["mt_fg_loss"] = mgd_loss(t_embs, s_embs, integral, mt)
+        if (mt.ffi or mt.odkd) and c.with_hint_adaptor:
+            with torch.no_grad():
+                t_emb0 = teacher.hint_embeddings(t_feats[0])
+            s_emb0 = student.hint_embeddings(s_feats[0])
+            if mt.ffi:
+                canvas = boxes_to_canvas(pseudo.boxes, pseudo.valid, canvas_size, float(mt.mgd_canvas_stride))
+                losses["mt_hint_loss"] = ffi_hint_loss(t_emb0, s_emb0, canvas)
             else:
-                losses["mt_classifier"] = psm_loss(s_logits, t_logits, rois.labels, rois.valid, mt, c.num_classes)
-    if use_mgd:
-        with record_function("mt_mgd"):
-            losses["mt_fg_loss"] = mgd_loss(t_embs, s_embs, integral, mt)
-    if (mt.ffi or mt.odkd) and c.with_hint_adaptor:
-        with torch.no_grad():
-            t_emb0 = teacher.hint_embeddings(t_feats[0])
-        s_emb0 = student.hint_embeddings(s_feats[0])
-        if mt.ffi:
-            canvas = boxes_to_canvas(pseudo.boxes, pseudo.valid, canvas_size, float(mt.mgd_canvas_stride))
-            losses["mt_hint_loss"] = ffi_hint_loss(t_emb0, s_emb0, canvas)
-        else:
-            losses["mt_hint_loss"] = naive_hint_loss(t_emb0, s_emb0)
+                losses["mt_hint_loss"] = naive_hint_loss(t_emb0, s_emb0)
     return losses

@@ -72,19 +72,23 @@ class Trainer:
         """One forward, backward and SGD step on a batch of device tensors
         (``data.synthetic.batch_to_torch``). Returns the losses and their
         sum ``loss_total``, detached."""
-        losses = self.model.forward_train(batch["image"], batch["image_size"], batch_to_gt(batch), self.gen)
-        total = sum(v.float() for v in losses.values())
-        self.update(total)
-        out = {k: v.detach() for k, v in losses.items()}
-        out["loss_total"] = total.detach()
+        # the record_function labels name the phases in a torch.profiler trace
+        # (scripts/profile_torch_port.py --train; perfbench's host_ms metrics)
+        with record_function("train_step"):
+            losses = self.model.forward_train(batch["image"], batch["image_size"], batch_to_gt(batch), self.gen)
+            with record_function("loss_sum"):
+                total = sum(v.float() for v in losses.values())
+            self.update(total)
+            out = {k: v.detach() for k, v in losses.items()}
+            out["loss_total"] = total.detach()
         return out
 
     def update(self, total: torch.Tensor) -> None:
         """Backward of ``total``, the gradients summed over the ranks, clip,
         SGD step, then the teacher EMA."""
-        for t in self.clip_tensors:
-            t.grad = None
-        # the labels name the phases in a torch.profiler trace (scripts/profile_torch_port.py --train)
+        with record_function("grad_reset"):
+            for t in self.clip_tensors:
+                t.grad = None
         with record_function("backward"):
             total.backward()
         with record_function("optimizer_step"):
@@ -92,16 +96,21 @@ class Trainer:
             # one without a gradient in this step too (the hint adaptor in a
             # supervised step): give such tensors a zero gradient, and so
             # every rank reduces the same tensors
-            for p in self.clip_tensors:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            comm.all_reduce_grads_(self.clip_tensors)
+            with record_function("grad_fill"):
+                for p in self.clip_tensors:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            with record_function("grad_all_reduce"):
+                comm.all_reduce_grads_(self.clip_tensors)
             if self.max_norm > 0:
-                self.grad_norm = clip_grad_norm_(self.clip_tensors, self.max_norm)
-            self.optimizer.step()
-            self.scheduler.step()
+                with record_function("grad_clip"):
+                    self.grad_norm = clip_grad_norm_(self.clip_tensors, self.max_norm)
+            with record_function("sgd_step"):
+                self.optimizer.step()
+                self.scheduler.step()
             if self.teacher is not None and self.ema_start is not None and self.iteration > self.ema_start:
-                ema_update_(*self.ema_pairs, self.iteration - self.ema_start, self.mt.alpha)
+                with record_function("ema_update"):
+                    ema_update_(*self.ema_pairs, self.iteration - self.ema_start, self.mt.alpha)
         self.iteration += 1
 
 
