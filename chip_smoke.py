@@ -22,6 +22,14 @@ line is printed):
      on tile borders, partly outside the map, ~32 cells on P5, levels no
      RoI maps to, an all-zero cotangent; every K3 call launched twice and
      the two results bit-identical;
+ 5a. kernel K4 (mask targets) against its plain version on the card, at
+     the training cells' call (16 images x 128 positive RoIs on 64
+     full-canvas uint8 masks of 1024 px, R 28) and at the lift's 256 px
+     with PRCNN's R 25, on RoIs moved off their gt boxes and on edge RoIs
+     (narrower than a pixel, past the canvas edge, below -1, on the last
+     row or column): every target equal but at exact ties (``K4_TIE`` of
+     the float64 value), the ties counted; one launch counted a call; the
+     kernel's device ms, the plain version's and the bound (bytes);
   6. the flagship path (configs/pap/mmt_psm_r50_fpn.yaml, 1024 canvas,
      bf16, seeded random weights) on 3 batches of 4 images through
      ``build_model``; one forward runs with synchronising calls made
@@ -48,7 +56,7 @@ line is printed):
   8. the supervised train step (``build_trainer``, same config, bf16,
      batch 4 of synthetic cells): 2 warm-up steps, one step with
      synchronising calls made errors, then 5 timed steps, in which K1
-     launches once per step and K2 and K3 twice; every loss finite, the
+     launches once per step, K2 and K3 twice and K4 once; every loss finite, the
      trainable parameters moved, the stem, layer1 and every FrozenBN tensor
      bit-unchanged;
   9. one f32 train step with the kernels, against the same step with the
@@ -63,7 +71,7 @@ line is printed):
      on the same inputs), one step with synchronising calls made
      errors, then 5 timed steps, in which K1 launches 4 times a step, K2 6
      times (the teacher's PSM box head pools 16 view images x 512 RoIs in
-     one launch) and K3 3 times; PSM, MGD and the total finite, the ramp
+     one launch), K3 3 times and K4 once; PSM, MGD and the total finite, the ramp
      weight above 0, the teacher moved by the EMA and not the student, the
      student's frozen tensors bit-unchanged, the hint adaptor moved; peak
      memory;
@@ -168,7 +176,7 @@ line is printed):
  18. a ``{"kernels": [...]}`` line with each kernel's time over its calls
      of one flagship forward (K1: the RPN's and relation-NMS's; K2: the box
      head's and the mask head's) or of one train step (K3: the box head's
-     and the mask head's), its plain version's time and its bound on this
+     and the mask head's; K4: the cells' call of phase 5a), its plain version's time and its bound on this
      card, K1's and K2's launches in the serving path under
      ``launches_eval``, its launches in the datasets path under
      ``launches_datasets``, the K1 and K2 numbers of the train step under ``*_train`` keys,
@@ -238,6 +246,7 @@ LOSS_RTOL, GRAD_RTOL, K3_GRAD_RTOL, WG_BIAS = 1e-4, 1e-2, 1e-4, 5.0
 K1_KERNELS = ("nms_iou_mask_kernel", "nms_block_scan_kernel")
 K2_KERNELS = ("roi_align_kernel",)
 K3_KERNELS = ("roi_footprint_kernel", "roi_align_backward_kernel")
+K4_KERNELS = ("mask_targets_kernel",)
 PROFILER_TRIES = 5
 _PROFILER = {"fell_back": False}
 
@@ -664,6 +673,151 @@ def check_roi_align_backward(dev, stats):
     print("K3 per call (kernel ms, plain ms): " + json.dumps(per_call), flush=True)
 
 
+# ------------------------------------------------------- K4 mask targets
+# the cells' call (16 images x 128 positives on 64 full-canvas masks, R 28)
+# and the lift's 256-px canvas at PRCNN's R 25: (B, S, M, canvas, R)
+K4_CASES = {"cells": (16, 128, 64, CANVAS, 28), "lift_r25": (4, 64, 64, 256, 25)}
+# a target pixel whose exact value lies this close to 0.5 is a tie, which
+# float32 rounding in another order may put on either side
+K4_TIE = 1e-9
+
+
+def mask_target_case(gen, b, s, m, size, dev):
+    """uint8 ellipse masks [b, m, size, size], gt rows [b, s] and RoIs [b,
+    s, 4]: each RoI its gt mask's pixel box (integer corners: exact ties),
+    three in four moved by up to a tenth of the box; image 0's first RoIs
+    are edge cases (``edge_mask_boxes``)."""
+    yy = torch.arange(size, dtype=torch.float32, device=dev)
+    masks = torch.empty((b, m, size, size), dtype=torch.uint8, device=dev)
+    for i in range(b):  # one image at a time: the float planes of 64 masks stay ~1 GB
+        u = torch.rand(4, m, generator=gen, device=dev)
+        cy, cx = size * (0.1 + 0.8 * u[0]), size * (0.1 + 0.8 * u[1])
+        ry, rx = size * (0.02 + 0.12 * u[2]), size * (0.02 + 0.12 * u[3])
+        dy = ((yy[None, :] - cy[:, None]) / ry[:, None]) ** 2
+        dx = ((yy[None, :] - cx[:, None]) / rx[:, None]) ** 2
+        masks[i] = (dy[:, :, None] + dx[:, None, :] <= 1.0).to(torch.uint8)
+    rows, cols = masks.amax(3) > 0, masks.amax(2) > 0  # [b, m, size]
+    first = lambda a: a.float().argmax(-1)  # noqa: E731
+    last = lambda a: size - 1 - a.flip(-1).float().argmax(-1)  # noqa: E731
+    gt_boxes = torch.stack([first(cols), first(rows), last(cols), last(rows)], -1).float()
+    idx = torch.randint(0, m, (b, s), generator=gen, device=dev)
+    boxes = torch.gather(gt_boxes, 1, idx[..., None].expand(-1, -1, 4))
+    wh = (boxes[..., 2:] - boxes[..., :2]).repeat(1, 1, 2)
+    moved = torch.rand(b, s, 1, generator=gen, device=dev) < 0.75
+    boxes = boxes + moved * 0.1 * wh * (2 * torch.rand(b, s, 4, generator=gen, device=dev) - 1)
+    edges = edge_mask_boxes(size, dev)
+    boxes[0, :edges.shape[0]] = edges
+    return masks, idx, boxes.contiguous()
+
+
+def edge_mask_boxes(size, dev):
+    """RoIs narrower than a pixel, past the canvas edge, with coordinates
+    below -1, and on the last row or column, on a size x size canvas."""
+    z = float(size)
+    return torch.tensor([[100.2, 50.7, 100.5, 50.9], [200.0, 100.0, 200.0, 140.0], [z - 40, z - 30, z + 30, z + 45],
+                         [-30.0, -25.0, 20.0, 15.0], [-9.0, -7.0, -1.5, -2.5], [-z, -z, 2 * z, 2 * z],
+                         [z - 1, 10.0, z - 1, 60.0], [10.0, z - 1, 60.0, z - 1], [z - 1.5, z - 1.5, z - 0.5, z - 0.5],
+                         [0.0, 0.0, z - 1, z - 1], [z + 5, 20.0, z + 9, 40.0]], device=dev)
+
+
+def exact_crop(gt_masks, gt_idx, boxes, resolution):
+    """``crop_masks_to_boxes`` before its threshold, in float64 from the
+    boxes' float32 values: every sample's exact value to ~1e-15, on any
+    device. [B, S, R, R]."""
+    b, s = gt_idx.shape
+    m, hm, wm = gt_masks.shape[1:]
+    dev = boxes.device
+    bx = boxes.reshape(-1, 4).double()
+    p = torch.arange(resolution, dtype=torch.float64, device=dev)[None, :, None]
+    i = torch.arange(2, dtype=torch.float64, device=dev)[None, None, :]
+
+    def axis(start, size, dim):
+        size = size.clamp(min=1.0)[:, None, None]
+        c = start[:, None, None] + p * size / resolution + (i + 0.5) * size / resolution / 2
+        inb = (c >= -1) & (c <= dim)
+        c = c.clamp(min=0.0)
+        edge = c.floor() >= dim - 1
+        low = torch.where(edge, float(dim - 1), c.floor())
+        frac = torch.where(edge, 0.0, c - low)
+        high = torch.where(edge, low, low + 1)
+        return ((low.long().flatten(1), torch.where(inb, 1 - frac, 0.0).flatten(1) / 2),
+                (high.long().flatten(1), torch.where(inb, frac, 0.0).flatten(1) / 2))
+
+    ys, xs = axis(bx[:, 1], bx[:, 3] - bx[:, 1], hm), axis(bx[:, 0], bx[:, 2] - bx[:, 0], wm)
+    base = ((torch.arange(b, device=dev)[:, None] * m + gt_idx).reshape(-1) * (hm * wm))[:, None, None]
+    flat = gt_masks.reshape(-1)
+    total = 0.0
+    for y, wy in ys:
+        for x, wx in xs:
+            v = flat[base + (y * wm)[:, :, None] + x[:, None, :]].double()  # [N, 2R, 2R]
+            total = total + wy[:, :, None] * wx[:, None, :] * v
+    return total.reshape(b, s, resolution, 2, resolution, 2).sum((3, 5))
+
+
+def k4_against_plain(gt_masks, gt_idx, boxes, resolution, what):
+    """K4 held to its plain version: every target equal but at exact ties
+    (``K4_TIE``); returns (pixels, ties, pixels that differ)."""
+    from mmt_psm_tpu_torch.models import mask_head as MH
+
+    got = MH.crop_masks_to_boxes_cuda(gt_masks, gt_idx, boxes, resolution)
+    want = MH.crop_masks_to_boxes_plain(gt_masks, gt_idx, boxes, resolution)
+    tie = (exact_crop(gt_masks, gt_idx, boxes, resolution) - 0.5).abs() < K4_TIE
+    diff = got != want
+    if got.shape != want.shape or got.dtype != torch.float32 or bool((diff & ~tie).any()):
+        bad = (diff & ~tie).nonzero()[:5].tolist() if got.shape == want.shape else None
+        raise AssertionError(f"K4 {what}: {tuple(got.shape)} {got.dtype}; targets differ off the ties at {bad}")
+    return got.numel(), int(tie.sum()), int(diff.sum())
+
+
+def mask_bytes_read(gt_masks, gt_idx, boxes, resolution):
+    """Distinct mask bytes whose value some target weighs in (the pooler's
+    own sample arithmetic, nonzero weights only): what K4 must read."""
+    from mmt_psm_tpu_torch.ops import pooler as Pm
+
+    b, s = gt_idx.shape
+    m, hm, wm = gt_masks.shape[1:]
+    bx = boxes.reshape(-1, 4).float()
+    rw, rh = (bx[:, 2] - bx[:, 0]).clamp(min=1.0), (bx[:, 3] - bx[:, 1]).clamp(min=1.0)
+    ylo, yhi, wylo, wyhi = Pm._axis_samples(bx[:, 1], rh, resolution, 2, torch.full_like(rh, float(hm)))
+    xlo, xhi, wxlo, wxhi = Pm._axis_samples(bx[:, 0], rw, resolution, 2, torch.full_like(rw, float(wm)))
+    ys, ym = torch.cat([ylo, yhi], 1), torch.cat([wylo > 0, wyhi > 0], 1)
+    xs, xm = torch.cat([xlo, xhi], 1), torch.cat([wxlo > 0, wxhi > 0], 1)
+    base = ((torch.arange(b, device=boxes.device)[:, None] * m + gt_idx).reshape(-1) * (hm * wm))[:, None, None]
+    flat = base + (ys * wm)[:, :, None] + xs[:, None, :]
+    return int(torch.unique(flat[ym[:, :, None] & xm[:, None, :]]).numel())
+
+
+def check_mask_targets(dev, stats):
+    from mmt_psm_tpu_torch.models import mask_head as MH
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    per_call, counts = {}, {}
+    for name, (b, s, m, size, res) in K4_CASES.items():
+        masks, idx, boxes = mask_target_case(gen, b, s, m, size, dev)
+        before = MH.crop_masks_to_boxes_cuda.launches
+        pixels, ties, differ = k4_against_plain(masks, idx, boxes, res, name)
+        if MH.crop_masks_to_boxes_cuda.launches != before + 1:
+            raise AssertionError(f"K4 {name}: {MH.crop_masks_to_boxes_cuda.launches - before} launches counted for one call")
+        ms = kernel_ms(lambda: MH.crop_masks_to_boxes_cuda(masks, idx, boxes, res), K4_KERNELS)
+        plain_ms = cuda_ms(lambda: MH.crop_masks_to_boxes_plain(masks, idx, boxes, res), iters=3, warmup=1)
+        # the mask bytes the targets weigh in, gt rows and boxes read once, the f32 targets written once
+        nbytes = mask_bytes_read(masks, idx, boxes, res) + b * s * (8 + 16) + pixels * 4
+        ops = pixels * (4 * 4 * 2 + 4 * 2)  # a pixel: 16 row taps, 4 column taps, each a multiply and an add
+        per_call[name] = dict(shape=f"{b} x {s} on {m} x {size}^2, R {res}", ms=round(ms, 5),
+                              plain_ms=round(plain_ms, 3), **bound(nbytes, ops), bytes=nbytes)
+        counts[name] = dict(pixels=pixels, ties=ties, differ=differ)
+        del masks
+    cells = per_call["cells"]
+    stats["mask_targets"] = dict(
+        name="mask_targets", route="cuda", source="mmt_psm_tpu_torch/csrc/mask_targets.cu",
+        replaces=None, ms=cells["ms"], plain_ms=cells["plain_ms"], bound_ms=cells["bound_ms"],
+        bound_by=cells["bound_by"], library_ms=None, ties=counts,
+    )
+    print("K4 per call (kernel ms, plain ms, bound): " + json.dumps(per_call), flush=True)
+    print("K4 target pixels, exact ties and pixels that differ from the plain version: " + json.dumps(counts),
+          flush=True)
+
+
 # ----------------------------------------------------------- flagship path
 def flagship(dev, stats):
     from mmt_psm_tpu_torch import build_model
@@ -960,6 +1114,7 @@ def frozen_names(model):
 
 def train_path(dev, stats):
     from mmt_psm_tpu_torch.data.synthetic import batch_to_torch, generate_batch
+    from mmt_psm_tpu_torch.models import mask_head as MH
     from mmt_psm_tpu_torch.ops import nms as N
     from mmt_psm_tpu_torch.ops import pooler as Pm
     from mmt_psm_tpu_torch.train import build_trainer
@@ -984,7 +1139,8 @@ def train_path(dev, stats):
     torch.cuda.synchronize()
 
     counters = {"nms": N.suppress_cuda, "roi_align": Pm.multilevel_roi_align_cuda,
-                "roi_align_backward": Pm.multilevel_roi_align_backward_cuda}
+                "roi_align_backward": Pm.multilevel_roi_align_backward_cuda,
+                "mask_targets": MH.crop_masks_to_boxes_cuda}
     for fn in counters.values():
         fn.launches = 0
     t = time.perf_counter()
@@ -992,13 +1148,15 @@ def train_path(dev, stats):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {k: fn.launches for k, fn in counters.items()}
-    # per step: K1 for the RPN; K2 and K3 for the box and mask heads
-    expected = {"nms": TRAIN_STEPS, "roi_align": 2 * TRAIN_STEPS, "roi_align_backward": 2 * TRAIN_STEPS}
+    # per step: K1 for the RPN; K2 and K3 for the box and mask heads; K4 for the mask targets
+    expected = {"nms": TRAIN_STEPS, "roi_align": 2 * TRAIN_STEPS, "roi_align_backward": 2 * TRAIN_STEPS,
+                "mask_targets": TRAIN_STEPS}
     if launches != expected:
         raise AssertionError(f"kernel launches in {TRAIN_STEPS} train steps: {launches}, expected {expected}")
     stats["nms"]["launches_train"] = launches["nms"]
     stats["roi_align"]["launches_train"] = launches["roi_align"]
     stats["roi_align_backward"]["launches"] = launches["roi_align_backward"]
+    stats["mask_targets"]["launches"] = launches["mask_targets"]
 
     losses = {k: [float(o[k]) for o in outs] for k in outs[0]}
     for k, v in losses.items():
@@ -1192,6 +1350,7 @@ def time_calls(calls, scaled=False):
 def mt_path(dev, stats):
     from mmt_psm_tpu_torch.data.synthetic import (batch_to_torch, generate_batch, generate_unlabeled_batch,
                                                   unlabeled_to_torch)
+    from mmt_psm_tpu_torch.models import mask_head as MH
     from mmt_psm_tpu_torch.train import build_mt_trainer
 
     trainer = build_mt_trainer(device=dev, seed=0)
@@ -1227,6 +1386,7 @@ def mt_path(dev, stats):
     torch.cuda.synchronize()
 
     counters = {k: getattr(mod, attr) for k, (mod, attr, _) in kernel_wrappers().items()}
+    counters["mask_targets"] = MH.crop_masks_to_boxes_cuda
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1236,9 +1396,11 @@ def mt_path(dev, stats):
     wall = time.perf_counter() - t
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     launches = {k: fn.launches for k, fn in counters.items()}
-    expected = {k: v * MT_STEPS for k, v in MT_LAUNCHES.items()}
+    # K4 once a step, for the labeled batch's mask targets
+    expected = {**{k: v * MT_STEPS for k, v in MT_LAUNCHES.items()}, "mask_targets": MT_STEPS}
     if launches != expected:
         raise AssertionError(f"kernel launches in {MT_STEPS} MT steps: {launches}, expected {expected}")
+    stats["mask_targets"]["launches_mt"] = launches["mask_targets"]
     for k, (ms, plain_ms, b, err) in timed.items():
         stats[k].update(ms_mt=ms, plain_ms_mt=plain_ms, bound_ms_mt=b["bound_ms"], bound_by_mt=b["bound_by"],
                         launches_mt=launches[k], max_abs_err_mt=err)
@@ -2582,6 +2744,7 @@ def main() -> int:
     phase("K1 nms vs plain", lambda: check_nms(dev, stats))
     phase("K2 roi_align vs plain", lambda: check_roi_align(dev, stats))
     phase("K3 roi_align backward vs plain", lambda: check_roi_align_backward(dev, stats))
+    phase("K4 mask targets vs plain", lambda: check_mask_targets(dev, stats))
     patches_per_s = phase("flagship bf16", lambda: flagship(dev, stats))
     phase("flagship f32 vs plain", lambda: flagship_f32_vs_plain(dev))
     eval_timing, eval_ds = phase("eval bf16", lambda: eval_path(dev, stats))
@@ -2625,7 +2788,8 @@ def main() -> int:
           f"f32 elements, at {CANVAS}px, bf16 on {card}", flush=True)
     print(f"learning throughput: {json.dumps({k: round(v, 3) for k, v in learning_rates.items()})} iterations/s of "
           f"the lift tool's arms at 256 px, batch 4, bf16 on {card}", flush=True)
-    print(json.dumps({"kernels": [stats["nms"], stats["roi_align"], stats["roi_align_backward"]]}), flush=True)
+    print(json.dumps({"kernels": [stats["nms"], stats["roi_align"], stats["roi_align_backward"],
+                                  stats["mask_targets"]]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -8,8 +8,9 @@ channels_last memory; the head's inputs and outputs keep the JAX layouts
 ([N, P, P, C] features, [B, K, R, R, classes] logits). In training the
 head sees the first ``MASK_MAX_POS`` positive RoIs of each image, its
 targets are the matched gt masks cropped to the RoI by ROIAlign at the
-output resolution and thresholded at 0.5 (``crop_masks_to_boxes``), and
-the loss is the BCE of the gt class's channel over the positives' pixels.
+output resolution and thresholded at 0.5 (``crop_masks_to_boxes``: kernel
+K4 on the card), and the loss is the BCE of the gt class's channel over
+the positives' pixels.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
+from ..ops import kernels
 from ..ops import losses as L
 from ..ops.pooler import _axis_samples, multilevel_roi_align
 from ..ops.topk import top_k
@@ -25,6 +28,8 @@ from ..parallel import comm
 from .layers import Conv2d, ConvTranspose2d, variance_scaling_
 
 _CROP_ROI_CHUNK = 32
+# csrc/mask_targets.cu's kMaxRes
+_K4_MAX_RESOLUTION = 128
 
 
 def kaiming_init(module: nn.Module, gen: torch.Generator):
@@ -153,11 +158,21 @@ def crop_masks_to_boxes(gt_masks, gt_idx, boxes, resolution: int):
     """Project each RoI's gt mask into the RoI at resolution x resolution:
     single-level ROIAlign (scale 1, 2x2 samples) of the full-image mask,
     then >= 0.5. gt_masks [B, M, Hm, Wm]; gt_idx [B, S] rows of it; boxes
-    [B, S, 4] in mask coordinates. Returns f32 [B, S, R, R].
+    [B, S, 4] in mask coordinates. Returns f32 [B, S, R, R]. Kernel K4 on
+    CUDA tensors, the plain version on CPU tensors."""
+    if gt_masks.is_cuda:
+        return crop_masks_to_boxes_cuda(gt_masks, gt_idx, boxes, resolution)
+    if gt_masks.device.type == "cpu":
+        return crop_masks_to_boxes_plain(gt_masks, gt_idx, boxes, resolution)
+    raise ValueError(f"crop_masks_to_boxes: unsupported device {gt_masks.device}")
 
-    The two contractions follow the JAX ``roi_align`` (rows, then columns)
-    so that values on the 0.5 threshold round the same way. Plain PyTorch:
-    the JAX package runs this on XLA, not in a Pallas kernel."""
+
+def crop_masks_to_boxes_plain(gt_masks, gt_idx, boxes, resolution: int):
+    """Plain PyTorch version of kernel K4, on any device: the JAX package's
+    dense contractions (XLA's, not a Pallas kernel) in chunks of
+    ``_CROP_ROI_CHUNK`` RoIs. The two contractions follow the JAX
+    ``roi_align`` (rows, then columns) so that values on the 0.5 threshold
+    round the same way."""
     b, s = gt_idx.shape
     m, hm, wm = gt_masks.shape[1:]
     flat_masks = gt_masks.reshape(b * m, hm, wm)
@@ -174,6 +189,42 @@ def crop_masks_to_boxes(gt_masks, gt_idx, boxes, resolution: int):
         tmp = torch.bmm(ay, flat_masks[rows[sl]].float())  # [r, R, Wm]
         out.append(torch.bmm(tmp, ax.transpose(1, 2)))  # [r, R, R]
     return (torch.cat(out) >= 0.5).float().reshape(b, s, resolution, resolution)
+
+
+def crop_masks_to_boxes_cuda(gt_masks, gt_idx, boxes, resolution: int):
+    """Kernel K4 (``csrc/mask_targets.cu``): every RoI's target in one
+    launch, read from the uint8 masks where they lie. gt_masks u8 [B, M, Hm,
+    Wm], gt_idx i64 [B, S], boxes f32 [B, S, 4], all contiguous on one
+    card; a row of gt_idx outside [0, M) gives NaN targets."""
+    with record_function("k4_mask_targets"):
+        dev = kernels.require_cuda("crop_masks_to_boxes", gt_masks, gt_idx, boxes)
+        for t, name, dtype in ((gt_masks, "gt_masks", torch.uint8), (gt_idx, "gt_idx", torch.int64),
+                               (boxes, "boxes", torch.float32)):
+            if t.dtype != dtype:
+                raise ValueError(f"crop_masks_to_boxes: {name} must be {dtype}, got {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"crop_masks_to_boxes: {name} must be contiguous")
+        if gt_masks.dim() != 4 or gt_idx.dim() != 2 or gt_idx.shape[0] != gt_masks.shape[0]:
+            raise ValueError(f"crop_masks_to_boxes: need gt_masks [B, M, Hm, Wm] and gt_idx [B, S], got "
+                             f"{tuple(gt_masks.shape)} and {tuple(gt_idx.shape)}")
+        if boxes.shape != (*gt_idx.shape, 4):
+            raise ValueError(f"crop_masks_to_boxes: boxes must be [{gt_idx.shape[0]}, {gt_idx.shape[1]}, 4], "
+                             f"got {tuple(boxes.shape)}")
+        if not 1 <= resolution <= _K4_MAX_RESOLUTION:
+            raise ValueError(f"crop_masks_to_boxes: resolution must lie in [1, {_K4_MAX_RESOLUTION}], got {resolution}")
+        b, s = gt_idx.shape
+        m, hm, wm = gt_masks.shape[1:]
+        out = torch.empty((b, s, resolution, resolution), dtype=torch.float32, device=dev)
+        lib = kernels.library("mask_targets")
+        with torch.cuda.device(dev):
+            err = lib.mask_targets(gt_masks.data_ptr(), gt_idx.data_ptr(), boxes.data_ptr(), out.data_ptr(),
+                                   b, s, m, hm, wm, resolution, kernels.stream_handle(dev))
+        kernels.check(err, "mask_targets")
+        crop_masks_to_boxes_cuda.launches += 1
+        return out
+
+
+crop_masks_to_boxes_cuda.launches = 0
 
 
 def mask_head_loss(mask_logits, mask_targets, labels, valid):

@@ -46,6 +46,7 @@ SIGNATURES = {
             _int, _int, _int, _int, _int, _int, _ptr,
         ),
     },
+    "mask_targets": {"mask_targets": (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _int, _ptr)},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -99,6 +100,15 @@ def build_all() -> dict[str, ctypes.CDLL]:
 def library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     return lib if lib is not None else build_all()[name]
+
+
+def require_cuda(what: str, *tensors):
+    """The one CUDA device that all ``tensors`` lie on; raises ValueError
+    where any lies elsewhere (a kernel's wrapper takes no CPU tensor)."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what}: every tensor must lie on one CUDA device, got {[str(t.device) for t in tensors]}")
+    return dev
 
 
 def stream_handle(device) -> ctypes.c_void_p:

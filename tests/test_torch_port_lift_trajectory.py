@@ -59,6 +59,7 @@ from mmt_psm_tpu.models import mask_head as JMH
 from mmt_psm_tpu.train import mt_step as J
 from mmt_psm_tpu.train.optim import make_optimizer as jax_make_optimizer
 from mmt_psm_tpu.train.supervised import create_train_state
+from chip_smoke import exact_crop
 from mmt_psm_tpu_torch.data.synthetic import generate_batch, generate_unlabeled_batch
 from mmt_psm_tpu_torch.models import detector as PD
 from mmt_psm_tpu_torch.models.mask_head import crop_masks_to_boxes
@@ -200,32 +201,6 @@ def _spread(values):
     return max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) for i, a in enumerate(values) for b in values[i + 1:])
 
 
-def _exact_crop(gt_masks, boxes, resolution: int):
-    """``crop_masks_to_boxes`` before its threshold, in float64: the
-    samples' exact values to 1e-12."""
-    hm = gt_masks.shape[-1]
-    bx = boxes.reshape(-1, 4).astype(np.float64)
-    p = np.arange(resolution)[None, :, None]
-    i = np.arange(2)[None, None, :]
-
-    def axis(start, size):
-        size = np.maximum(size, 1.0)[:, None, None]
-        c = start[:, None, None] + p * size / resolution + (i + 0.5) * size / resolution / 2
-        inb = (c >= -1) & (c <= hm)
-        c = np.maximum(c, 0.0)
-        low = np.minimum(np.floor(c), hm - 1)
-        frac = np.where(np.floor(c) >= hm - 1, 0.0, c - low)
-        high = np.where(np.floor(c) >= hm - 1, low, low + 1)
-        cols = np.arange(hm)
-        w = (np.where(inb, 1 - frac, 0)[..., None] * (low[..., None] == cols)
-             + np.where(inb, frac, 0)[..., None] * (high[..., None] == cols))
-        return w.sum(2) / 2  # [N, R, hm]
-
-    ay, ax = axis(bx[:, 1], bx[:, 3] - bx[:, 1]), axis(bx[:, 0], bx[:, 2] - bx[:, 0])
-    m = gt_masks.reshape(-1, hm, hm).astype(np.float64)
-    return np.matmul(np.matmul(ay, m), ax.transpose(0, 2, 1))
-
-
 def test_mask_targets_equal_jax_but_at_exact_ties():
     """The port's mask targets against the JAX package's jitted ones, on
     the gt boxes of four lift-sized batches (256 px, two images, up to 64
@@ -244,7 +219,7 @@ def test_mask_targets_equal_jax_but_at_exact_ties():
             boxes = boxes.astype(np.float32)
             got = crop_masks_to_boxes(torch.from_numpy(masks), torch.from_numpy(idx), torch.from_numpy(boxes), 28)
             want = np.asarray(_JAX_CROP(jnp.asarray(masks), jnp.asarray(idx), jnp.asarray(boxes)))
-            exact = _exact_crop(masks[np.arange(2)[:, None], idx], boxes, 28).reshape(want.shape)
+            exact = exact_crop(*map(torch.from_numpy, (masks, np.ascontiguousarray(idx), boxes)), 28).numpy()
             tie = np.abs(exact - 0.5) < 1e-9
             diff = (got.numpy() != want) & valid[:, :, None, None]
             assert not np.any(diff & ~tie), np.argwhere(diff & ~tie)[:5]

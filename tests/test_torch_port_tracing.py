@@ -14,9 +14,9 @@ empty a metric fails here; no span is emitted more than ``MAX_PER_UNIT``
 times a unit (no span inside a loop). The training loop's spans are read
 from the trace that TPU.PROFILE_DIR writes.
 
-Marked ``gpu`` (skips without a card): the kernels K1, K2 and K3, launched
-through ctypes, fall under ``k1_nms``, ``k2_roi_align`` and
-``k3_roi_align_bwd`` in a card trace, and their launch calls are ones the
+Marked ``gpu`` (skips without a card): the kernels K1, K2, K3 and K4, launched
+through ctypes, fall under ``k1_nms``, ``k2_roi_align``, ``k3_roi_align_bwd``
+and ``k4_mask_targets`` in a card trace, and their launch calls are ones the
 ``launches`` metric counts. On a GPU host:
 ``python -m pytest tests/test_torch_port_tracing.py -m gpu --noconftest``.
 """
@@ -32,6 +32,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from mmt_psm_tpu_torch.engine import inference
+from mmt_psm_tpu_torch.models import mask_head as MH
 from mmt_psm_tpu_torch.ops import kernels
 from mmt_psm_tpu_torch.ops import nms as N
 from mmt_psm_tpu_torch.ops import pooler as P
@@ -72,6 +73,7 @@ NESTED = {
 CALLERS = {
     "k1_nms": {"rpn_select_proposals", "relation_nms", "box_postprocess", "mt_teacher_box_head"},
     "k2_roi_align": {"box_head", "mask_head", "mt_teacher_box_head", "mt_psm"},
+    "k4_mask_targets": {"mask_head_targets"},
 }
 
 
@@ -125,12 +127,14 @@ def _card_path_on_the_cpu(mp):
     result; ``DeviceStage``'s pinned buffers and CUDA events made plain."""
     mp.setattr(kernels, "library", lambda name: _NoKernel())
     mp.setattr(kernels, "stream_handle", lambda device: None)
+    mp.setattr(kernels, "require_cuda", lambda what, *tensors: tensors[0].device)
     mp.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     mp.setattr(torch.cuda, "Event", _Event)
     mp.setattr(inference, "_pinned_empty", lambda shape, dtype: torch.empty(shape, dtype=dtype))
     for module, plain, wrapper in ((N, "suppress_plain", "suppress_cuda"),
                                    (P, "multilevel_roi_align_plain", "multilevel_roi_align_cuda"),
-                                   (P, "multilevel_roi_align_backward_plain", "multilevel_roi_align_backward_cuda")):
+                                   (P, "multilevel_roi_align_backward_plain", "multilevel_roi_align_backward_cuda"),
+                                   (MH, "crop_masks_to_boxes_plain", "crop_masks_to_boxes_cuda")):
         def both(*args, _plain=getattr(module, plain), _wrapper=getattr(module, wrapper)):
             _wrapper(*args)
             return _plain(*args)
@@ -320,18 +324,22 @@ def test_kernels_launched_through_ctypes_fall_under_their_spans(dev):
     scores = torch.rand(2, 300, generator=gen, device=dev)
     valid = torch.ones(2, 300, dtype=torch.bool, device=dev)
     feats = [torch.randn(2, 64 >> i, 64 >> i, 32, generator=gen, device=dev).requires_grad_() for i in range(4)]
+    masks = (torch.rand(2, 3, 256, 256, generator=gen, device=dev) > 0.5).to(torch.uint8)
+    rows = torch.randint(0, 3, (2, 40), generator=gen, device=dev)
     for _ in range(2):  # the second pass is the traced one
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             N.nms_mask(boxes, scores, valid, 0.5)
             pooled = P.multilevel_roi_align(feats, boxes[:, :40] * 0.5, (0.25, 0.125, 0.0625, 0.03125), 7, 2)
             pooled.float().sum().backward()
+            MH.crop_masks_to_boxes(masks, rows, boxes[:, :40].contiguous(), 28)
             torch.cuda.synchronize()
     events = prof.events()
-    labels = {"k1_nms", "k2_roi_align", "k3_roi_align_bwd", BACKWARD_LABEL}
+    labels = {"k1_nms", "k2_roi_align", "k3_roi_align_bwd", "k4_mask_targets", BACKWARD_LABEL}
     dev_ivs, _ = device_intervals(events, labels)
     want = {"nms_iou_mask_kernel": "k1_nms", "nms_block_scan_kernel": "k1_nms", "roi_align_kernel": "k2_roi_align",
-            "roi_footprint_kernel": "k3_roi_align_bwd", "roi_align_backward_kernel": "k3_roi_align_bwd"}
+            "roi_footprint_kernel": "k3_roi_align_bwd", "roi_align_backward_kernel": "k3_roi_align_bwd",
+            "mask_targets_kernel": "k4_mask_targets"}
     found = {}
     for iv in dev_ivs:
         for kernel, span in want.items():
