@@ -1,10 +1,11 @@
 """Bytes and operations that the kernel roles' work needs, from each call's
 logical inputs, and the least time the chip could take for them.
 
-Copies of ``chip_smoke.py``'s ``bound``, ``sampled_cells`` and the byte and
-operation counts of its ``time_nms``, ``time_roi_align`` and
-``check_roi_align_backward``, written per call so that they read the same
-work whatever kernel implements the role:
+Copies of ``chip_smoke.py``'s ``bound``, ``sampled_cells``,
+``mask_bytes_read`` and the byte and operation counts of its ``time_nms``,
+``time_roi_align``, ``check_roi_align_backward`` and ``check_mask_targets``,
+written per call so that they read the same work whatever kernel implements
+the role:
 
 * K1, greedy NMS on score-sorted problems: each kept box tested against
   every later box (14 operations an IoU test); boxes, valid flags and the
@@ -16,6 +17,12 @@ work whatever kernel implements the role:
 * K3, its backward: the cotangent, boxes and levels read once, every cell
   of the gradient maps written once; 4 samples x 4 corners x (multiply,
   add) a cotangent element.
+* K4, the mask targets (each RoI's uint8 gt mask, row ``gt_idx`` of
+  [B, M, Hm, Wm], cropped to its box at R x R by single-level ROIAlign with
+  2 x 2 samples, thresholded, float32 out): the distinct mask bytes some
+  target weighs in read once, each RoI's gt row (int64) and box (4 float32)
+  read once, the targets written once; a target pixel's 4 x 4 row taps and
+  4 column taps, each a multiply and an add: 40 operations a pixel.
 """
 
 from __future__ import annotations
@@ -90,3 +97,29 @@ def k3_roi_align_bwd(shapes, boxes: torch.Tensor, p: int, elem_bytes: int) -> tu
     g_elems = boxes.shape[0] * boxes.shape[1] * p * p * c
     nbytes = g_elems * elem_bytes + boxes.numel() * 5 + sum(math.prod(sh) for sh in shapes) * elem_bytes
     return nbytes, g_elems * 4 * (4 * 2)
+
+
+def mask_bytes_read(mask_shape, gt_idx, boxes, resolution: int) -> int:
+    """Distinct (image, gt row, y, x) mask bytes whose value some target of
+    ``boxes`` [B, S, 4] at R = ``resolution`` weighs in (the pooler's own
+    sample arithmetic, nonzero weights only): what K4 must read."""
+    b, s = gt_idx.shape
+    m, hm, wm = mask_shape[1:]
+    bx = boxes.reshape(-1, 4).float()
+    rw, rh = (bx[:, 2] - bx[:, 0]).clamp(min=1.0), (bx[:, 3] - bx[:, 1]).clamp(min=1.0)
+    ylo, yhi, wylo, wyhi = Pm._axis_samples(bx[:, 1], rh, resolution, 2, torch.full_like(rh, float(hm)))
+    xlo, xhi, wxlo, wxhi = Pm._axis_samples(bx[:, 0], rw, resolution, 2, torch.full_like(rw, float(wm)))
+    ys, ym = torch.cat([ylo, yhi], 1), torch.cat([wylo > 0, wyhi > 0], 1)
+    xs, xm = torch.cat([xlo, xhi], 1), torch.cat([wxlo > 0, wxhi > 0], 1)
+    base = ((torch.arange(b, device=boxes.device)[:, None] * m + gt_idx).reshape(-1) * (hm * wm))[:, None, None]
+    flat = base + (ys * wm)[:, :, None] + xs[:, None, :]
+    return int(torch.unique(flat[ym[:, :, None] & xm[:, None, :]]).numel())
+
+
+def k4_mask_targets(mask_shape, gt_idx: torch.Tensor, boxes: torch.Tensor, resolution: int) -> tuple:
+    """(bytes, operations) of one K4 call: the targets of ``boxes`` [B, S, 4]
+    at R = ``resolution`` from masks of ``mask_shape`` [B, M, Hm, Wm]."""
+    b, s = gt_idx.shape
+    pixels = b * s * resolution * resolution
+    nbytes = mask_bytes_read(mask_shape, gt_idx, boxes, resolution) + b * s * (8 + 16) + pixels * 4
+    return nbytes, pixels * (4 * 4 * 2 + 4 * 2)

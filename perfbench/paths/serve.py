@@ -21,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from ..counts.models import count
 from ..harness import device as D, recorders
 from ..harness.reading import TraceReading
 from ..harness.weights import SAMPLE_STREAM, TRAFFIC_STREAM, fill, generator
@@ -130,7 +131,7 @@ class Run:
         return TraceReading(
             events=prof.events(), calls=calls, units=n, first="perfbench.dispatch", last="perfbench.fetch",
             window_units=len(self.times), window_s=self.window_s,
-            flops_per_unit=sum(_flops(self.conf, self.batch).values()),
+            flops_per_unit=sum(count(self.conf["flops"], self.conf["model"], self.batch).values()),
             enqueue_ms=[(e - s) * 1e3 for s, e, _ in self.times],
         )
 
@@ -143,10 +144,4 @@ class Run:
     def check(self) -> dict:
         return judge.check(self.conf, self.seed, self.dev, sorted(self.kept.items()), self.host, self.sizes,
                            self.batch, self.w["check"])
-
-
-def _flops(conf, batch):
-    from ..counts.flops import COUNTS
-
-    return COUNTS[conf["flops"]](conf["model"], batch)
 

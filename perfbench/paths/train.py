@@ -14,6 +14,7 @@ import time
 
 import torch
 
+from ..counts.models import count
 from ..harness import device as D, recorders
 from ..harness.reading import TraceReading
 from ..harness.weights import STEP_STREAM, TRAFFIC_STREAM, fill, generator
@@ -130,9 +131,7 @@ class Run:
         }
 
     def flops_per_step(self) -> float:
-        from ..counts.flops import COUNTS
-
-        return sum(COUNTS[self.w["flops"]](self.conf["model"], self.batch).values())
+        return sum(count(self.w["flops"], self.conf["model"], self.batch).values())
 
     def traced_segment(self) -> TraceReading:
         from torch.profiler import ProfilerActivity, profile, record_function

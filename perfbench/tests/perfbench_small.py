@@ -1,8 +1,12 @@
 """The benchmark's cells cut to a CPU's size (128 canvas, batch 2, two
-pool batches) for the tests' rehearsals of a whole run."""
+pool batches) for the tests' rehearsals of a whole run. The cells are
+``BENCHMARK.json``'s, grouped by their workload file's ``path``."""
 
 from __future__ import annotations
 
+import contextlib
+import importlib
+import json
 import os
 import sys
 
@@ -10,7 +14,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-SERVE_CELLS = ("serve.mmt_psm_r50_fpn.b16", "serve.mask_rcnn_r50_fpn.b16")
+
+def _cells(path: str) -> tuple:
+    from perfbench.harness import spec
+
+    with open(os.path.join(spec.ROOT, "BENCHMARK.json")) as f:
+        names = [w["name"] for w in json.load(f)["workloads"]]
+    return tuple(n for n in names if spec.workload(n)["path"] == path)
+
+
+SERVE_CELLS = _cells("serve")
+TRAIN_CELLS = _cells("train")
+MT_CELLS = _cells("mt_train")
 CANVAS = 128
 
 
@@ -25,9 +40,6 @@ def small_cell(name: str):
     mix = dict(spec.traffic(w["traffic"]), window=[CANVAS - 8, CANVAS], canvas=CANVAS, pool_batches=2)
     return w, conf, mix
 
-TRAIN_CELLS = ("train.mask_rcnn_r50_fpn.b16",)
-MT_CELLS = ("mt_train.mmt_psm_r50_fpn.b16",)
-
 
 def small_train_cell(name: str):
     """(workload, config, mix) of training cell ``name`` at the CPU's size."""
@@ -40,3 +52,35 @@ def small_train_cell(name: str):
     mix = dict(spec.traffic(w["traffic"]), window=[CANVAS - 8, CANVAS], canvas=CANVAS)
     return w, conf, mix
 
+
+@contextlib.contextmanager
+def roles_on_the_cpu(raw: dict | None = None):
+    """The CPU path routed through each kernel role's wrapper attribute
+    (``perfbench/counts/roles/``), which then holds the role's plain version
+    (``<name>_plain`` beside ``<name>_cuda``), so the recorders see the calls
+    that the card's path makes, with the plain results. ``raw`` gets
+    role -> [(args, out)] of every call."""
+    from perfbench.counts import roles
+
+    raw = {} if raw is None else raw
+    undo = []
+    try:
+        for name in roles.names():
+            module_name, wrapper = roles.role(name).WRAPPER
+            module = importlib.import_module(module_name)
+            plain_name = wrapper[:-len("_cuda")] + "_plain"
+            plain, orig = getattr(module, plain_name), getattr(module, wrapper)
+
+            def stand_in(*args, _plain=plain, _seen=raw.setdefault(name, [])):
+                out = _plain(*args)
+                _seen.append((args, out))
+                return out
+
+            stand_in.launches = 0
+            undo += [(module, wrapper, orig), (module, plain_name, plain)]
+            setattr(module, wrapper, stand_in)
+            setattr(module, plain_name, lambda *args, _m=module, _w=wrapper: getattr(_m, _w)(*args))
+        yield
+    finally:
+        for module, attr, value in reversed(undo):
+            setattr(module, attr, value)

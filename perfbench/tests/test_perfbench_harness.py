@@ -8,8 +8,11 @@ from __future__ import annotations
 
 import ast
 import glob
+import hashlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import types
@@ -94,6 +97,7 @@ def test_every_file_is_found_by_name():
         assert spec.per_layer(cell["name"])
     files = {os.path.basename(p)[:-5] for p in glob.glob(os.path.join(HERE, "metrics", "*.json"))}
     assert files == {m["name"] for m in bench["per_layer"]}
+    counted = set()
     for m in bench["per_layer"]:
         s = json.load(open(os.path.join(HERE, "metrics", m["name"] + ".json")))
         for k in ("unit", "better", "source", "layer", "moves"):
@@ -102,6 +106,35 @@ def test_every_file_is_found_by_name():
         # the harness reads the metric in every cell that reports what it moves
         for cell in m.get("workloads", [w["name"] for w in bench["workloads"]]):
             assert m["name"] in spec.per_layer(cell), (m["name"], cell)
+        if s["reader"] == "roofline":
+            counted.add(s["count"])
+            assert m["name"].startswith(f"{s['count']}_roofline."), m["name"]
+            for kernel in s["kernels"]:
+                assert any(re.search(rf"\b{kernel}\b", open(p).read())
+                           for p in glob.glob(os.path.join(ROOT, "mmt_psm_tpu_torch", "csrc", "*.cu"))), kernel
+    # the FLOP counts that the configurations (serving) and workloads (training) name
+    from perfbench.counts import models, roles
+
+    names = {spec.config(c["name"])["flops"] for c in bench["configs"]}
+    names |= {spec.workload(w["name"])["flops"] for w in bench["workloads"] if "flops" in spec.workload(w["name"])}
+    for name in names:
+        path = os.path.join(HERE, "counts", "models", f"{name}.py")
+        assert os.path.isfile(path) and not BANNED.union({"mmt_psm_tpu_torch"}).intersection(_imports(path)), name
+        assert callable(importlib.import_module(f"{models.__name__}.{name}").count)
+    # the kernel roles: each a roofline's count, its wrapper the program's, its file free of the program
+    assert set(roles.names()) == counted
+    for name in roles.names():
+        path = os.path.join(HERE, "counts", "roles", f"{name}.py")
+        assert not BANNED.union({"mmt_psm_tpu_torch"}).intersection(_imports(path)), name
+        role = roles.role(name)
+        module, attr = role.WRAPPER
+        assert isinstance(module, str) and isinstance(attr, str)
+        program = importlib.import_module(module)
+        assert isinstance(getattr(program, attr).launches, int), name
+        # the CPU rehearsals route the role through its plain version beside the wrapper
+        assert attr.endswith("_cuda") and callable(getattr(program, attr[:-len("_cuda")] + "_plain", None)), \
+            f"{name}: {module} has no {attr[:-len('_cuda')]}_plain beside {attr}"
+        assert callable(role.keep) and callable(role.work)
 
 
 def test_a_new_cell_takes_the_metrics_of_what_it_reports(monkeypatch):
@@ -234,6 +267,113 @@ def test_rehearsed_run_is_correct(name):
     assert list(r)[-1] == "checks"
     assert r["checks"] and all(c["value"] <= c["limit"] for c in r["checks"].values())
     assert r["device"]["window_s"] > 0
+
+
+# a run of a cell in a copy of the benchmark, on the CPU: the kernel roles'
+# wrappers hold the plain versions, and with no card each kernel's device
+# time reads 1 ms, so the rooflines read the recorded calls
+_REHEARSAL = """
+import argparse, json, os, sys, time
+sys.path[:0] = [{copy!r}, os.path.join({copy!r}, "perfbench", "tests")]
+import torch
+import perfbench
+assert perfbench.__file__.startswith({copy!r}), perfbench.__file__
+from perfbench.harness import main as M
+from perfbench.harness.reading import TraceReading
+from perfbench_small import roles_on_the_cpu, small_cell
+
+TraceReading.kernel_seconds = lambda self, names: 1e-3
+w, conf, mix = small_cell({cell!r})
+with roles_on_the_cpu():
+    r = M.measure(argparse.Namespace(seed=2**31 + 91, seconds=1.0, trace=1), torch.device("cpu"),
+                  time.perf_counter(), w, conf, mix)
+print(json.dumps(r))
+"""
+
+
+def _digests(top) -> dict:
+    out = {}
+    for d, dirs, files in os.walk(top):
+        dirs[:] = [x for x in dirs if x != "__pycache__"]
+        for f in files:
+            path = os.path.join(d, f)
+            out[os.path.relpath(path, top)] = hashlib.sha256(open(path, "rb").read()).hexdigest()
+    return out
+
+
+def test_a_new_configuration_joins_by_new_files_only(tmp_path):
+    """A copy of the plain configuration under a new name, with a count file
+    of its own that re-exports the plain model's and a serving cell: the
+    copy's run reports the cell's metrics, the copy's own tests collect the
+    new cell into every test over the serving cells and pass on it and on
+    the files (all but the slow ones of whole runs, controls and training
+    steps, which take their cells the same way), and no file that was there
+    changes but ``BENCHMARK.json``, which only gains the new entries."""
+    copy = tmp_path / "checkout"
+    shutil.copytree(HERE, copy / "perfbench", ignore=shutil.ignore_patterns(".cache", "__pycache__"))
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), copy / "BENCHMARK.json")
+    for name in ("mmt_psm_tpu_torch", "configs", "chip_smoke.py", "pyproject.toml"):  # the program beside it
+        os.symlink(os.path.join(ROOT, name), copy / name)
+    before = _digests(copy)
+    old_conf, new_conf = "mask_rcnn_r50_fpn", "mask_rcnn_r50_fpn_again"
+    old_cell, new_cell = f"serve.{old_conf}.b16", f"serve.{new_conf}.b16"
+    bench_dir = copy / "perfbench"
+    conf = json.loads((bench_dir / "configs" / f"{old_conf}.json").read_text())
+    (bench_dir / "configs" / f"{new_conf}.json").write_text(
+        json.dumps(dict(conf, name=new_conf, flops="mask_rcnn_fpn_again"), indent=1))
+    (bench_dir / "counts" / "models" / "mask_rcnn_fpn_again.py").write_text(
+        "from .mask_rcnn_fpn import count  # noqa: F401\n")
+    w = json.loads((bench_dir / "workloads" / f"{old_cell}.json").read_text())
+    (bench_dir / "workloads" / f"{new_cell}.json").write_text(
+        json.dumps(dict(w, name=new_cell, config=new_conf), indent=1))
+    original = json.loads((copy / "BENCHMARK.json").read_text())
+    bench = json.loads((copy / "BENCHMARK.json").read_text())
+    c = next(c for c in bench["configs"] if c["name"] == old_conf)
+    bench["configs"].append(dict(c, name=new_conf, file=f"perfbench/configs/{new_conf}.json"))
+    cell = next(x for x in bench["workloads"] if x["name"] == old_cell)
+    bench["workloads"].append(dict(cell, name=new_cell, config=new_conf))
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if old_cell in m.get("workloads", ()):
+            m["workloads"].append(new_cell)
+    (copy / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
+
+    code = _REHEARSAL.format(copy=str(copy), cell=new_cell)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=900, cwd=str(copy))
+    assert out.returncode == 0, out.stderr[-4000:]
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    assert r["correct"] is True and r["failed"] == 0
+    for name in ("mfu.serve", "k1_nms_roofline.serve", "k2_roi_align_roofline.serve"):
+        assert r["metrics"][name]["value"] > 0, name
+
+    pytest_ = [sys.executable, "-m", "pytest", "-p", "no:cacheprovider"]
+    collect = [*pytest_, "-q", "--collect-only"]
+    out = subprocess.run([*collect, "perfbench/tests"], capture_output=True, text=True, timeout=600, cwd=str(copy))
+    assert out.returncode == 0, out.stdout[-4000:]
+    here = subprocess.run([*collect, os.path.join(HERE, "tests")], capture_output=True, text=True, timeout=600,
+                          cwd=ROOT)
+    serving = {i.split("[")[0].split("::")[-1] for i in here.stdout.split() if i.endswith(f"[{old_cell}]")}
+    assert serving and serving == {i.split("[")[0].split("::")[-1] for i in out.stdout.split()
+                                   if i.endswith(f"[{new_cell}]")}
+    slow = "rehearsed_run or control or reference or training or role or joins_by_new_files_only"
+    out = subprocess.run([*pytest_, "-v", "perfbench/tests", "-k", f"not ({slow}) or ({new_conf} and flop_counter)"],
+                         capture_output=True, text=True, timeout=900, cwd=str(copy))
+    assert out.returncode == 0, out.stdout[-4000:]
+    for test in ("test_flops_equal_flop_counter[" + new_cell + "]", "test_every_file_is_found_by_name",
+                 "test_counts_at_batch_16_equal_the_pinned"):
+        assert re.search(re.escape(test) + r"\S* PASSED", out.stdout), test
+
+    after = _digests(copy)
+    assert {p for p in before if after.get(p) != before[p]} == {"BENCHMARK.json"}
+    assert set(after) - set(before) == {f"perfbench/configs/{new_conf}.json",
+                                        "perfbench/counts/models/mask_rcnn_fpn_again.py",
+                                        f"perfbench/workloads/{new_cell}.json"}
+    grown = json.loads((copy / "BENCHMARK.json").read_text())
+    grown["configs"] = [x for x in grown["configs"] if x["name"] != new_conf]
+    grown["workloads"] = [x for x in grown["workloads"] if x["name"] != new_cell]
+    for m in grown["end_to_end"] + grown["per_layer"]:
+        if "workloads" in m:
+            m["workloads"] = [x for x in m["workloads"] if x != new_cell]
+    assert grown == original
 
 
 def test_judge_matches_degenerate_boxes_and_counts_both_sides():
