@@ -4,8 +4,9 @@ host's paste and Papeval (the port's copy of
 maskrcnn_benchmark/engine/inference.py:16-125 and
 evaluation/pap/pap_eval.py:79-143).
 
-The model emits 28x28 mask probabilities per detection (a box-only model
-none: each box is then filled); a model with set-NMS (K_HEAD > 1) tags its
+The model emits R x R mask probabilities per detection (R is 28 for the FPN
+mask heads, 14 for the C4 family's stage-5 head, 25 for PRCNN's; a
+box-only model none: each box is then filled); a model with set-NMS (K_HEAD > 1) tags its
 detections with their proposals, and the host keeps the set-NMS survivors
 of each class (``models/box_head.py::set_nms_filter``). The host pastes
 the masks into image space at threshold 0.5 (``engine/paste.py``) and scores

@@ -8,14 +8,19 @@ then FastRCNNPredictor averages the 7 x 7 map and applies ``cls_score`` and
 ``bbox_pred`` (roi_box_predictors.py:5-29). The C4 mask head shares the
 stage-5 head and has only its own predictor.
 
-The JAX modules take no compute dtype, so flax promotes the bf16 pooled
-features to the float32 parameters: the head runs in float32 here too.
+The head computes in the model's compute dtype (``TPU.COMPUTE_DTYPE``,
+bf16 by default), as every other layer of the port does.
+The JAX modules take no ``dtype=``, so flax promotes the bf16 pooled
+features to the float32 parameters and the JAX head runs in float32; that
+is flax's dtype promotion, not a precision the configuration states. At
+float32 the two compute the same.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from .layers import Linear, normal_, variance_scaling_
 from .resnet import Bottleneck
@@ -40,7 +45,7 @@ class ResNetStage5Head(nn.Module):
 
 class ResNet50Conv5ROIExtractor(nn.Module):
     """Pooled features [N, P, P, C] (NHWC) -> stage-5 maps [N, 2048, P/2,
-    P/2], float32, NCHW in channels_last memory."""
+    P/2] in ``dtype``, NCHW in channels_last memory."""
 
     def __init__(self, in_channels: int = 1024):
         super().__init__()
@@ -52,9 +57,14 @@ class ResNet50Conv5ROIExtractor(nn.Module):
             if isinstance(m, nn.Conv2d):
                 variance_scaling_(m.weight, 1.0, "fan_in", "truncated_normal", gen)
 
-    def forward(self, pooled):
-        x = pooled.float().permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return self.head(x)
+    def forward(self, pooled, dtype: torch.dtype):
+        """``dtype``: the model's compute dtype. NHWC pooled features permute
+        to channels_last NCHW without a copy; they are cast only where their
+        dtype differs. Span ``roi_stage5``: once under the box head and once
+        under the mask head a forward."""
+        with record_function("roi_stage5"):
+            x = pooled.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            return self.head(x)
 
 
 class FastRCNNPredictor(nn.Module):

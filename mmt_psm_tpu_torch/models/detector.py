@@ -383,7 +383,7 @@ class MaskRCNN(nn.Module):
         box = self.roi_heads.box
         flat = pooled.reshape(b * s, *pooled.shape[2:])
         if c.box_extractor == C4_EXTRACTOR:
-            x = box.feature_extractor(flat)
+            x = box.feature_extractor(flat, self.compute_dtype)
             logits, regs = box.predictor(x)
             feats = x.mean(dim=(2, 3))
         else:
@@ -406,7 +406,8 @@ class MaskRCNN(nn.Module):
             p = pooled.shape[2]
             flat = pooled.reshape(b * s, p, p, -1)
             if c.mask_extractor == C4_EXTRACTOR:
-                x = self.roi_heads.box.feature_extractor(flat)  # float32, as in the JAX model
+                # the box head's stage-5 extractor, in the compute dtype
+                x = self.roi_heads.box.feature_extractor(flat, self.compute_dtype)
             else:
                 x = mask.feature_extractor(flat.permute(0, 3, 1, 2))
         logits = mask.predictor(x.to(self.compute_dtype))

@@ -74,6 +74,8 @@ CALLERS = {
     "k1_nms": {"rpn_select_proposals", "relation_nms", "box_postprocess", "mt_teacher_box_head"},
     "k2_roi_align": {"box_head", "mask_head", "mt_teacher_box_head", "mt_psm"},
     "k4_mask_targets": {"mask_head_targets"},
+    # the C4 family's stage-5 RoI head, which the box and mask heads share
+    "roi_stage5": {"box_head", "mask_head"},
 }
 
 
