@@ -30,11 +30,18 @@ line is printed):
      row or column): every target equal but at exact ties (``K4_TIE`` of
      the float64 value), the ties counted; one launch counted a call; the
      kernel's device ms, the plain version's and the bound (bytes);
+ 5b. kernels K5 (a conv's weight in the compute dtype and its FrozenBN's
+     scale and shift) and K6 (FrozenBN, the residual add and the ReLU in
+     place over a conv's output) against their plain versions on the card,
+     bf16 and f32, at the flagship's layer1 shapes (batch 4, 256 x 256
+     maps) and C4's stage-5 shapes (16,000 RoIs, 7 x 7 maps): bit-identical;
+     each call's device ms against its bound (bytes), the plain version's ms
+     and that of the unfused passes the body ran before (``unfused_ms``);
   6. the flagship path (configs/pap/mmt_psm_r50_fpn.yaml, 1024 canvas,
      bf16, seeded random weights) on 3 batches of 4 images through
      ``build_model``; one forward runs with synchronising calls made
      errors (no host sync); launch counts show K1 and K2 ran on every
-     forward;
+     forward, and K5 and K6 53 and 49 times a forward;
      one batch also in f32 with the kernels and with the plain versions,
      TF32 off, whose detections must agree (on the weights of seed
      ``F32_FLAGSHIP_SEED``, where CIAM's attention is well conditioned);
@@ -247,6 +254,8 @@ K1_KERNELS = ("nms_iou_mask_kernel", "nms_block_scan_kernel")
 K2_KERNELS = ("roi_align_kernel",)
 K3_KERNELS = ("roi_footprint_kernel", "roi_align_backward_kernel")
 K4_KERNELS = ("mask_targets_kernel",)
+K5_KERNELS = ("prepare_conv_bn_kernel",)
+K6_KERNELS = ("bn_residual_relu_kernel",)
 PROFILER_TRIES = 5
 _PROFILER = {"fell_back": False}
 
@@ -818,9 +827,103 @@ def check_mask_targets(dev, stats):
           flush=True)
 
 
+# K5 calls: name -> conv weight [O, I, kh, kw]; K6 calls: name -> (conv
+# output [N, C, H, W], its residual: none, added as it is, or a
+# downsample's to scale and shift). The flagship's layer1 at BATCH on the
+# CANVAS (256 x 256 maps) and C4's stage 5 on the serving cell's 16 x 1000
+# RoIs (7 x 7 maps).
+K5_CASES = {"layer1_conv1": (64, 64, 1, 1), "layer1_conv2": (64, 64, 3, 3), "layer1_conv3": (256, 64, 1, 1),
+            "stage5_conv1": (512, 1024, 1, 1), "stage5_conv2": (512, 512, 3, 3), "stage5_conv3": (2048, 512, 1, 1),
+            "stage5_downsample": (2048, 1024, 1, 1)}
+K6_CASES = {"layer1_conv1": ((BATCH, 64, CANVAS // 4, CANVAS // 4), None),
+            "layer1_conv3": ((BATCH, 256, CANVAS // 4, CANVAS // 4), "identity"),
+            "layer1_conv3_downsample": ((BATCH, 256, CANVAS // 4, CANVAS // 4), "downsample"),
+            "stage5_conv2": ((16000, 512, 7, 7), None), "stage5_conv3": ((16000, 2048, 7, 7), "identity"),
+            "stage5_conv3_downsample": ((16000, 2048, 7, 7), "downsample")}
+# a served R-50-FPN forward: 53 FrozenBNs, each a K5 call; 49 epilogues (the
+# 4 downsample branches ride in their blocks' last epilogue)
+FOLD_LAUNCHES = {"prepare_conv_bn": 53, "bn_residual_relu": 49}
+
+
+def frozen_bn_case(o, gen, dev):
+    from mmt_psm_tpu_torch.models.layers import FrozenBatchNorm2d
+
+    bn = FrozenBatchNorm2d(o).to(dev)
+    bn.weight.uniform_(0.5, 1.5, generator=gen)
+    bn.bias.normal_(0.0, 0.1, generator=gen)
+    bn.running_mean.normal_(0.0, 0.1, generator=gen)
+    bn.running_var.uniform_(0.5, 2.0, generator=gen)
+    return bn
+
+
+@torch.no_grad()
+def check_frozen_bn(dev, stats):
+    from mmt_psm_tpu_torch.models import layers as L
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    per_call = {"prepare_conv_bn": {}, "bn_residual_relu": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        es = torch.finfo(dtype).bits // 8
+        for name, shape in K5_CASES.items():
+            w = torch.randn(shape, generator=gen, device=dev)
+            bn = frozen_bn_case(shape[0], gen, dev)
+            before = L.prepare_conv_bn_cuda.launches
+            got, want = L.prepare_conv_bn(w, bn, dtype), L.prepare_conv_bn_plain(w, bn, dtype)
+            if L.prepare_conv_bn_cuda.launches != before + 1:
+                raise AssertionError(f"K5 {name}: {L.prepare_conv_bn_cuda.launches - before} launches for one call")
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"K5 {name} {dtype}: differs from the plain version")
+            ms = kernel_ms(lambda: L.prepare_conv_bn_cuda(w, bn, dtype), K5_KERNELS)
+            plain_ms = cuda_ms(lambda: L.prepare_conv_bn_plain(w, bn, dtype), iters=5, warmup=1)
+            # the buffers read once and scale and shift written once; in bf16 also the weight read and its cast written
+            nbytes = shape[0] * (16 + 8) + (w.numel() * (4 + es) if dtype == torch.bfloat16 else 0)
+            per_call["prepare_conv_bn"][f"{name} {str(dtype)[6:]}"] = dict(
+                shape=list(shape), ms=round(ms, 5), plain_ms=round(plain_ms, 4), **bound(nbytes, 0), bytes=nbytes)
+            del w
+        for name, (shape, residual) in K6_CASES.items():
+            cl = torch.channels_last
+            y = torch.randn(shape, generator=gen, device=dev).to(dtype).contiguous(memory_format=cl)
+            res = torch.randn(shape, generator=gen, device=dev).to(dtype).contiguous(memory_format=cl) \
+                if residual else None
+            ss = torch.stack(frozen_bn_case(shape[1], gen, dev).scale_shift())
+            rss = torch.stack(frozen_bn_case(shape[1], gen, dev).scale_shift()) if residual == "downsample" else None
+            want = L.bn_residual_relu_plain(y, ss, res, rss)
+            got = L.bn_residual_relu(y.clone(memory_format=cl), ss, res, rss)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K6 {name} {dtype}: differs from the plain version")
+            del got, want
+            # in place: every timed call runs over the same y, which stays finite under a ReLU
+            ms = kernel_ms(lambda: L.bn_residual_relu_cuda(y, ss, res, rss), K6_KERNELS)
+            plain_ms = cuda_ms(lambda: L.bn_residual_relu_plain(y, ss, res, rss), iters=5, warmup=1)
+            # the passes the body ran before: FrozenBN's multiply and add (the downsample's too), the residual
+            # add, the ReLU, on constants cast to the compute dtype
+            sc, sh = (t.to(dtype)[:, None, None] for t in ss)
+            if residual == "downsample":
+                rsc, rsh = (t.to(dtype)[:, None, None] for t in rss)
+                unfused = lambda: torch.relu(y * sc + sh + (res * rsc + rsh))  # noqa: E731
+            elif residual:
+                unfused = lambda: torch.relu(y * sc + sh + res)  # noqa: E731
+            else:
+                unfused = lambda: torch.relu(y * sc + sh)  # noqa: E731
+            unfused_ms = cuda_ms(unfused, iters=5, warmup=1)
+            nbytes = y.numel() * es * (3 if residual else 2) + shape[1] * 8 * (2 if rss is not None else 1)
+            per_call["bn_residual_relu"][f"{name} {str(dtype)[6:]}"] = dict(
+                shape=list(shape), ms=round(ms, 5), plain_ms=round(plain_ms, 4), unfused_ms=round(unfused_ms, 4),
+                **bound(nbytes, 0), bytes=nbytes)
+            del y, res
+    for key, source in (("prepare_conv_bn", "K5"), ("bn_residual_relu", "K6")):
+        bf16 = [c for k, c in per_call[key].items() if k.endswith("bfloat16")]
+        stats[key] = dict(name=key, route="cuda", source="mmt_psm_tpu_torch/csrc/frozen_bn.cu", replaces=None,
+                          ms=round(sum(c["ms"] for c in bf16), 5), plain_ms=round(sum(c["plain_ms"] for c in bf16), 4),
+                          bound_ms=round(sum(c["bound_ms"] for c in bf16), 5), bound_by="bytes", library_ms=None)
+        print(f"{source} per call (kernel ms, plain ms, bound, share of the bound): " + json.dumps(
+            {k: dict(c, bound_share=round(c["bound_ms"] / c["ms"], 4)) for k, c in per_call[key].items()}), flush=True)
+
+
 # ----------------------------------------------------------- flagship path
 def flagship(dev, stats):
     from mmt_psm_tpu_torch import build_model
+    from mmt_psm_tpu_torch.models import layers as L
     from mmt_psm_tpu_torch.ops import nms as N
     from mmt_psm_tpu_torch.ops import pooler as Pm
 
@@ -841,6 +944,8 @@ def flagship(dev, stats):
 
     N.suppress_cuda.launches = 0
     Pm.multilevel_roi_align_cuda.launches = 0
+    folds = (L.prepare_conv_bn_cuda, L.bn_residual_relu_cuda)
+    folds_before = [fn.launches for fn in folds]
     t = time.perf_counter()
     outs = [model(x, sizes) for x in batches]
     torch.cuda.synchronize()
@@ -851,6 +956,11 @@ def flagship(dev, stats):
         if v != 2 * BATCHES:
             raise AssertionError(f"kernel {k} launched {v} times in {BATCHES} forwards, expected {2 * BATCHES}")
         stats[k]["launches"] = v
+    for fn, before, (k, per) in zip(folds, folds_before, FOLD_LAUNCHES.items()):
+        if fn.launches - before != per * BATCHES:
+            raise AssertionError(f"kernel {k} launched {fn.launches - before} times in {BATCHES} forwards, "
+                                 f"expected {per * BATCHES}")
+        stats[k]["launches"] = fn.launches - before
     k_det = 2 * model.config.relation.first_n
     for d in outs:
         if d.boxes.shape != (BATCH, k_det, 4) or d.masks.shape != (BATCH, k_det, 28, 28):
@@ -2745,6 +2855,7 @@ def main() -> int:
     phase("K2 roi_align vs plain", lambda: check_roi_align(dev, stats))
     phase("K3 roi_align backward vs plain", lambda: check_roi_align_backward(dev, stats))
     phase("K4 mask targets vs plain", lambda: check_mask_targets(dev, stats))
+    phase("K5 K6 frozen BN vs plain", lambda: check_frozen_bn(dev, stats))
     patches_per_s = phase("flagship bf16", lambda: flagship(dev, stats))
     phase("flagship f32 vs plain", lambda: flagship_f32_vs_plain(dev))
     eval_timing, eval_ds = phase("eval bf16", lambda: eval_path(dev, stats))
@@ -2789,7 +2900,8 @@ def main() -> int:
     print(f"learning throughput: {json.dumps({k: round(v, 3) for k, v in learning_rates.items()})} iterations/s of "
           f"the lift tool's arms at 256 px, batch 4, bf16 on {card}", flush=True)
     print(json.dumps({"kernels": [stats["nms"], stats["roi_align"], stats["roi_align_backward"],
-                                  stats["mask_targets"]]}), flush=True)
+                                  stats["mask_targets"], stats["prepare_conv_bn"], stats["bn_residual_relu"]]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -14,6 +14,15 @@ runs under ``torch.utils.checkpoint`` when gradients are on: its
 activations are recomputed in the backward instead of kept, and the
 gradients do not change (the JAX ``nn.remat``).
 
+Where no gradient is recorded (``torch.is_grad_enabled()`` False: serving,
+the teacher), every FrozenBN is applied in one epilogue pass over its
+conv's output with the ReLU and the residual (``layers.conv_frozen_bn_relu``:
+kernels K5 and K6); the downsample's FrozenBN joins the epilogue of
+``conv3``, so its branch has no pass of its own. The constants are read
+from the weights and buffers on every call, so nothing is kept to go
+stale, and in float32 the result is the modules' own, bit for bit. With
+gradients on, the modules run one after another as written.
+
 FREEZE_CONV_BODY_AT as the JAX model does it: the stem's output and the
 output of every stage below ``freeze_at`` are detached (its
 ``stop_gradient``, resnet.py:98-99, 119-120), and those modules' weights
@@ -27,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .layers import Conv2d, FrozenBatchNorm2d, variance_scaling_
+from .layers import Conv2d, FrozenBatchNorm2d, conv_frozen_bn, conv_frozen_bn_relu, variance_scaling_
 
 # conv body -> (blocks per stage, which stages' outputs it returns)
 STAGE_SPECS = {
@@ -45,7 +54,10 @@ class Stem(nn.Module):
         self.bn1 = FrozenBatchNorm2d(out_channels)
 
     def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
+        if torch.is_grad_enabled():
+            x = F.relu(self.bn1(self.conv1(x)))
+        else:
+            x = conv_frozen_bn_relu(self.conv1, self.bn1, x)
         return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
 
 
@@ -67,11 +79,17 @@ class Bottleneck(nn.Module):
         self.bn3 = FrozenBatchNorm2d(out_channels)
 
     def forward(self, x):
-        residual = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        return F.relu(out + residual)
+        if torch.is_grad_enabled():
+            residual = x if self.downsample is None else self.downsample(x)
+            out = F.relu(self.bn1(self.conv1(x)))
+            out = F.relu(self.bn2(self.conv2(out)))
+            out = self.bn3(self.conv3(out))
+            return F.relu(out + residual)
+        out = conv_frozen_bn_relu(self.conv1, self.bn1, x)
+        out = conv_frozen_bn_relu(self.conv2, self.bn2, out)
+        if self.downsample is None:
+            return conv_frozen_bn_relu(self.conv3, self.bn3, out, x)
+        return conv_frozen_bn_relu(self.conv3, self.bn3, out, *conv_frozen_bn(*self.downsample, x))
 
 
 class ResNet(nn.Module):

@@ -8,7 +8,8 @@ a hash of the source and flags so an edited source is rebuilt. Nothing is
 built or loaded when this module is imported.
 
 ``-fmad=false`` keeps every float multiply and add separately rounded, so
-the kernels' box and sampling arithmetic matches float32 on the CPU.
+the kernels' box and sampling arithmetic, and FrozenBN's epilogue, match
+float32 on the CPU.
 """
 
 from __future__ import annotations
@@ -47,6 +48,10 @@ SIGNATURES = {
         ),
     },
     "mask_targets": {"mask_targets": (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _int, _ptr)},
+    "frozen_bn": {
+        "prepare_conv_bn": (_ptr,) * 7 + (_int, ctypes.c_longlong, _ptr),
+        "bn_residual_relu": (_ptr,) * 4 + (ctypes.c_longlong, _int, _int, _ptr),
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
